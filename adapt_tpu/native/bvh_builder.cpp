@@ -2,7 +2,7 @@
 //
 // Native counterpart of the reference's pybind11/Eigen accelerator
 // (tracer/bvh/bvh.cpp) but an independent design shaped for wavefront
-// traversal on TPU: the output is a flat array of nodes in DFS order where
+// traversal: the output is a flat array of nodes in DFS order where
 // each node carries a `skip` index (next node when its AABB test fails).
 // A vectorized traversal then needs only a per-lane cursor: hit -> +1,
 // miss -> skip; leaves reference a contiguous range of reordered prims.

@@ -12,7 +12,9 @@
 #include <vector>
 
 #ifdef _OPENMP
+#ifdef _OPENMP
 #include <omp.h>
+#endif
 #endif
 
 extern "C" {

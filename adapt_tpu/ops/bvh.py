@@ -9,11 +9,15 @@ cleanly onto a batched lax.while_loop.
 This replaces the reference's per-ray DFS walk (tracer/path_tracer.py:
 338-422, tracer/ti_bvh.py) with a lane-synchronous wavefront loop.
 
-TPU layout note: all node data rides ONE packed (M,9) row-gather per step
-and all leaf-prim data ONE packed (P,14) row-gather per leaf slot, the
-prim rows pre-reordered leaf-contiguous at scene compile. The original
-field-per-field form issued ~45 separate per-lane gathers per step, which
-measured ~50x slower than HBM bandwidth on a 290k-prim scene (v5e).
+Layout note: all node data rides ONE packed (M,9) row-gather per step and
+all leaf-prim data ONE packed (P,14) row-gather per leaf slot, the prim
+rows pre-reordered leaf-contiguous at scene compile (a field-per-field
+form issues ~45 separate per-lane gathers per step).
+
+The loop is lockstep: every step runs the full-width masked body until
+the slowest lane finishes. This is the intersector for scenes above
+scene/compile.SMALL_SCENE_PRIMS prims on the GPU, and from
+scene/compile.BVH_THRESHOLD prims on the CPU.
 """
 from __future__ import annotations
 

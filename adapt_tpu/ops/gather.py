@@ -1,30 +1,31 @@
-"""TPU-fast table lookups: one-hot contractions instead of gather ops.
+"""Small-table lookups as one-hot contractions instead of gather ops.
 
-Profiling the render pass on a v5e showed per-lane `gather` HLOs dominating
-device busy time (take_along_axis selections and (P, ...) table rows indexed
-by hit ids cost ~10 ms per bounce at 512^2), while the same lookup expressed
-as a one-hot matmul runs on the MXU in microseconds.
+The renderer was first built for an accelerator where per-lane gathers
+were slow and one-hot matmuls fast. Whether plain `table[idx]` is faster
+on the GPU is an open measurement (ROADMAP A4); until then every lookup
+of a small table goes through here.
 
-Exactness: one-hot weights are 0.0/1.0, which are exact in bf16, so even the
-MXU's bf16-pass f32 synthesis reproduces table values bit-exactly (each
-output is 1.0 * value + zeros). Integer tables go through f32, exact for
-|v| < 2^24.
+Exactness: one-hot weights are 0.0/1.0 and each output is 1.0 * value +
+zeros, so the contraction reproduces table values bit-exactly as long as
+the matmul runs in full f32: the package pins
+jax_default_matmul_precision=highest (adapt_tpu/__init__.py), because a
+TF32 matmul would keep only 10 mantissa bits. Integer tables go through
+f32, exact for |v| < 2^24.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 
-ONE_HOT_MAX = 192      # beyond this, HBM gathers win
+ONE_HOT_MAX = 192      # beyond this, plain gathers
 
 
 def tgather_pack(tables, idx):
     """Shared-one-hot gather: tables[k][idx] for several (P, ...) tables.
 
     Builds the (N, P) one-hot ONCE and contracts against the concatenated
-    feature columns in a single matmul, instead of one HBM-materialized
-    one-hot + matmul per table (xprof: the separate one-hots in gather_mat
-    were ~20% of PT device time). Bool tables return via >0.5, ints via
+    feature columns in a single matmul, instead of one materialized
+    one-hot + matmul per table. Bool tables return via >0.5, ints via
     rint (exact below 2^24), like tgather."""
     P = tables[0].shape[0]
     assert all(t.shape[0] == P for t in tables)

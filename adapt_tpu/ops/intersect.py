@@ -1,17 +1,18 @@
 """Wavefront ray-scene intersection (device side).
 
-TPU-native design: instead of the reference's per-ray divergent loop with a
-3x3 matrix inverse per triangle (tracer_base.py:199-214), the triangle test
-is algebraically rewritten into a *plane + dual-basis barycentric* form whose
-batched evaluation is two (N,3)@(3,T) matmuls (rides the MXU) plus cheap
-VPU elementwise ops:
+Instead of the reference's per-ray divergent loop with a 3x3 matrix
+inverse per triangle (tracer_base.py:199-214), the triangle test is
+algebraically rewritten into a *plane + dual-basis barycentric* form whose
+batched evaluation is all-pairs dot products plus elementwise ops:
 
     t = (d_p - o.n) / (dir.n)
     u = (o + t dir).U - cu,   v = (o + t dir).V - cv
 
 with n, U, V, d_p, cu, cv precomputed per triangle at scene-compile time
-(scene/compile.py). Primitives are processed in fixed-size chunks carried
-through a lax.scan running-min so memory stays bounded for large scenes.
+(scene/compile.py). Which intersector a scene uses is fixed at compile
+time (scene/compile.py `choose_intersector`): the jnp chunk scan below
+(triangles in fixed-size chunks through a lax.scan running min), the
+Pallas kernels of ops/intersect_pallas.py, or the BVH walk of ops/bvh.py.
 
 Sphere primitives use the reference's quadratic form (tracer_base.py:183-198)
 vectorized over the (N, S) grid.
@@ -19,7 +20,6 @@ vectorized over the (N, S) grid.
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -50,11 +50,6 @@ class Interaction:
     n_s: jnp.ndarray       # (N,3) shading normal
     uv: jnp.ndarray        # (N,2) local barycentric uv (or sphere angles)
     tex: jnp.ndarray       # (N,3) albedo texture color, -1 = invalid
-    # (N,) i32 id of the intersector cluster containing the hit prim
-    # (cluster tier only; -1 = miss / other tiers; None where a caller
-    # builds synthetic records). Feeds cluster_key_hint so the next
-    # segment's wavefront sort key costs nothing.
-    cid: jnp.ndarray | None = None
 
     @property
     def is_hit(self):
@@ -91,12 +86,12 @@ def _tri_chunks(scene, chunk: int):
 def _pair_dots(a, b):
     """Exact all-pairs f32 dot products: (N,3)x(C,3) -> (N,C).
 
-    Deliberately NOT a matmul: with K=3 the MXU does no useful work
-    (3 of 128 systolic rows), and both the TPU MXU (bf16 passes) and some
-    CPU backends compute f32 GEMMs at reduced precision, which breaks
-    geometric predicates (false self-intersections at RAY_EPS scale).
-    The expanded mul+sum stays on the VPU in exact f32 and XLA fuses the
-    broadcast into the reduction, so nothing (N,C,3) is materialized."""
+    Deliberately NOT a matmul: with K=3 a matrix unit does no useful work,
+    and GEMMs may run at reduced precision (TF32 on the GPU, unless the
+    package-wide 'highest' pin holds), which breaks geometric predicates
+    (false self-intersections at RAY_EPS scale). The expanded mul+sum is
+    exact f32 and XLA fuses the broadcast into the reduction, so nothing
+    (N,C,3) is materialized."""
     return (a[:, None, :] * b[None, :, :]).sum(-1)
 
 
@@ -133,120 +128,15 @@ def _sphere_hit(ray_o, ray_d, center, radius):
     return jnp.where(inside_disc, ray_t, -1.0)
 
 
-def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
-                  key_hint=None):
+def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Closest-hit intersection for a ray batch; returns Interaction.
 
     max_t: optional (N,) clip distance (reference min_depth semantics:
     hits are only accepted strictly before max_t - eps). alive: optional
-    (N,) bool — dead lanes are forced to miss (far0 = -big, so even
-    inside-a-box slab tests prune them) and sorted to the tail of the
-    wavefront, letting the cluster kernel's tile masks skip them entirely;
-    renderers pass their terminated-ray mask so late bounces only pay for
-    surviving rays. key_hint: optional (N,) i32 wavefront sort key for
-    the cluster tier (see cluster_key_hint) — replaces the (N, C) slab
-    key pass; any key is valid (it only drives coherence), but dead lanes
-    must key >= 8*C to pack last. Dispatch: Pallas cluster intersector
-    for big scenes on TPU, Pallas brute kernel for small scenes on TPU,
-    jnp cursor BVH / chunk scan otherwise."""
-    if cfg.use_cluster:
-        from . import cluster_pallas as _cp
-        N = ray_o.shape[0]
-        far0 = jnp.full((N,), FAR, jnp.float32) if max_t is None \
-            else jnp.where(max_t > 0.0, max_t - RAY_EPS, FAR)
-        if alive is not None:
-            far0 = jnp.where(alive, far0, -3e38)
-        if _cp.MARCH and _cp.SHORTLIST:
-            # per-ray front-to-back march: does its own per-round
-            # candidate sorts (round 1 subsumes the key pass and the
-            # outer wavefront sort; key_hint is unused here)
-            t, wid = _cp.cluster_closest_march(scene, ray_o, ray_d, far0)
-            gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t,
-                                                     ray_o, ray_d)
-            cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-            return _assemble_interaction(scene, cfg, ray_o, ray_d, t,
-                                         gid, u, v,
-                                         jnp.zeros((N,), bool), pre_ng=ng,
-                                         pre_obj=obj, pre_final=True,
-                                         pre_cid=cid)
-        if _cp.QPICK and _cp.SHORTLIST:
-            # queue-pick: Pallas front-cluster pass + one sort + P
-            # per-tile pick passes + exact union cleanup (original-order
-            # results; key_hint unused — the front pass IS the key)
-            t, wid = _cp.qpick_closest(scene, ray_o, ray_d, far0)
-            gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t,
-                                                     ray_o, ray_d)
-            cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-            return _assemble_interaction(scene, cfg, ray_o, ray_d, t,
-                                         gid, u, v,
-                                         jnp.zeros((N,), bool), pre_ng=ng,
-                                         pre_obj=obj, pre_final=True,
-                                         pre_cid=cid)
-        if _cp.MAJ and _cp.SHORTLIST:
-            # majority rounds sort internally (per-round resorts) and
-            # return original-order results; key_hint is unused
-            t, wid = _cp.majority_closest(scene, ray_o, ray_d, far0)
-            gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t,
-                                                     ray_o, ray_d)
-            cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-            return _assemble_interaction(scene, cfg, ray_o, ray_d, t,
-                                         gid, u, v,
-                                         jnp.zeros((N,), bool), pre_ng=ng,
-                                         pre_obj=obj, pre_final=True,
-                                         pre_cid=cid)
-        if _cp.QUEUE and _cp.SHORTLIST:
-            # per-ray candidate queues: the dense pass that builds each
-            # ray's own front-to-back cluster list also yields the best
-            # sort key (the FIRST cluster the ray will enter — finer
-            # than key_hint's origin cluster), so key_hint is unused
-            C = scene.cl_aabb.shape[0]
-            ids, _ents, more = _cp._topk_candidates(scene, ray_o, ray_d,
-                                                    far0, _cp.QUEUE_K)
-            octant = ((ray_d[:, 0] > 0).astype(jnp.int32)
-                      + 2 * (ray_d[:, 1] > 0).astype(jnp.int32)
-                      + 4 * (ray_d[:, 2] > 0).astype(jnp.int32))
-            key = jnp.where(ids[:, 0] < C, ids[:, 0] * 8 + octant, 8 * C)
-            pk = _cp._pack_ids(ids)
-            ro_s, rd_s, far_s, pk_s, more_s, pos = _sort_by(
-                key, [ray_o, ray_d, far0, pk, more.astype(jnp.int32),
-                      jnp.arange(N, dtype=jnp.int32)])
-            t, wid = _cp.queue_closest_raw(scene, ro_s, rd_s, far_s,
-                                           pk_s, more_s.astype(bool),
-                                           _cp.QUEUE_K)
-            t, wid = _sort_by(pos, [t, wid])
-            gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t,
-                                                     ray_o, ray_d)
-            cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-            return _assemble_interaction(scene, cfg, ray_o, ray_d, t,
-                                         gid, u, v,
-                                         jnp.zeros((N,), bool), pre_ng=ng,
-                                         pre_obj=obj, pre_final=True,
-                                         pre_cid=cid)
-        key = key_hint if key_hint is not None \
-            else _cp.primary_cluster_key(scene, ray_o, ray_d, far0)
-        ro_s, rd_s, far_s, pos = _sort_by(
-            key, [ray_o, ray_d, far0, jnp.arange(N, dtype=jnp.int32)])
-        if _cp.SHORTLIST:
-            # unsort only (t, winner id) — a 3-operand sort instead of
-            # the 9-operand (t,gid,u,v,n_g,obj) unsort (~240 ms at
-            # 512^2); attributes resolve identically in original order
-            # since _resolve_winner is elementwise in (wid, t, o, d).
-            t, wid = _cp.cluster_closest_raw(scene, ro_s, rd_s, far_s)
-            t, wid = _sort_by(pos, [t, wid])
-            gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t,
-                                                     ray_o, ray_d)
-            cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-        else:
-            t, gid, u, v, ng, obj = _cp.cluster_closest_hit(
-                scene, ro_s, rd_s, far_s)
-            t, gid, u, v, ng, obj = _sort_by(pos, [t, gid, u, v, ng, obj])
-            cid = None
-        # the kernel already finalized sphere normals/uv and obj ids, so
-        # the sphere-override block is skipped (is_sphere_hit = False)
-        return _assemble_interaction(scene, cfg, ray_o, ray_d, t, gid, u,
-                                     v, jnp.zeros((N,), bool), pre_ng=ng,
-                                     pre_obj=obj, pre_final=True,
-                                     pre_cid=cid)
+    (N,) bool — dead lanes are forced to miss (far0 = -big), so renderers
+    pass their terminated-ray mask and late bounces only pay for
+    surviving rays. Dispatch (cfg, see scene/compile.choose_intersector):
+    BVH walk, Pallas triangle kernel, or the jnp chunk scan."""
     if cfg.use_bvh and not cfg.use_pallas:
         from .bvh import traverse
         best_t, best_prim, best_u, best_v = traverse(scene, ray_o, ray_d,
@@ -272,13 +162,9 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
     T = scene.tri_n.shape[0]
     pre_ng = pre_obj = None
     if T > 0 and cfg.use_pallas:
-        from .gather import tgather
         from .intersect_pallas import tri_closest_hit
-        t, row, best_u, best_v, pre_ng, pre_obj = tri_closest_hit(
-            scene, ray_o, ray_d, far0)
-        gid = tgather(scene.tri_gid, jnp.maximum(row, 0))
-        best_prim = jnp.where(row >= 0, gid, -1)
-        best_t = t
+        best_t, best_prim, best_u, best_v, pre_ng, pre_obj = \
+            tri_closest_hit(scene, ray_o, ray_d, far0)
     elif T > 0:
         chunk = _chunk_size(N, T)
         ops = _tri_chunks(scene, chunk)
@@ -291,7 +177,7 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
                                             tcu, tcv)
             valid &= (gid >= 0)[None, :]
             t = jnp.where(valid, t, FAR)
-            # argmin + one-hot selection (per-lane gathers are slow on TPU)
+            # argmin + one-hot selection of the winner's fields
             idx = jnp.argmin(jnp.where(t < bt[:, None], t, FAR), axis=1)
             cand_t = select_along(t, idx)
             better = cand_t < bt
@@ -327,19 +213,18 @@ def ray_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
 
 def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
                           best_u, best_v, is_sphere_hit, pre_ng=None,
-                          pre_obj=None, pre_final=False, pre_cid=None):
+                          pre_obj=None):
     """Build the Interaction record from raw hit data
     (reference tracer_base.py:215-237).
 
-    pre_ng/pre_obj: per-lane normal / object id already resolved by a
-    Pallas kernel's VMEM tables (skips per-lane HBM gathers). pre_final:
-    the kernel also finalized sphere normals/uv (cluster path), so the
-    sphere-override block is statically skipped."""
+    pre_ng/pre_obj: per-lane normal / object id already resolved by the
+    Pallas kernel (it carries them with the running hit, saving two
+    table lookups here)."""
     from .gather import tgather
     N = ray_o.shape[0]
     hit = best_prim >= 0
     prim = jnp.maximum(best_prim, 0)
-    S = 0 if pre_final else scene.sph_center.shape[0]
+    S = scene.sph_center.shape[0]
     if pre_obj is not None:
         obj_id = pre_obj
         if S > 0:
@@ -392,48 +277,13 @@ def _assemble_interaction(scene, cfg, ray_o, ray_d, best_t, best_prim,
         # constant plane measurably broke bounce-loop fusion (r2 -31%)
         tex=(jnp.full((N, 3), -1.0, jnp.float32)
              if scene.tex["albedo"].present else None),
-        cid=(jnp.full((N,), -1, jnp.int32) if pre_cid is None
-             else pre_cid.astype(jnp.int32)),
     )
 
 
-import os as _os
-
-# Wavefront sort granularity: 0 = one global lax.sort; otherwise sort
-# independently within segments of this many rays (axis-1 sort after a
-# reshape). Segmented sorts are much cheaper on TPU (no global merge
-# network) and remain EXACT: grouping only drives tile coherence, and
-# the unsort stays a true inverse because the forward permutation never
-# crosses a segment boundary. The cost is looser tile shortlists (each
-# segment groups only its own rays); measured end-to-end on the big
-# scenes before changing the default.
-SORT_SEG = int(_os.environ.get("ADAPT_SORT_SEG", "0"))
-
-
-def _sort_by(key, arrays, seg=None):
-    """Reorder arrays by ascending key via ONE multi-operand lax.sort.
-
-    TPU note: applying a permutation with x[perm] lowers to per-lane HBM
-    gathers (~100x off bandwidth; they measured 575 ms/spp on the 290k
-    scene). XLA's sort moves the same payloads with dense, structured
-    accesses. (N,k) arrays ride as k scalar operands.
-
-    seg: None = use the SORT_SEG default; 0 = force one global sort
-    (callers that rely on GLOBAL compaction, e.g. volume_ops
-    _compact_rounds, must pass 0). With a segment size set and N
-    divisible by it, the sort runs per segment (see SORT_SEG note)."""
-    if seg is None:
-        seg = SORT_SEG
-    if seg and key.shape[0] % seg == 0 and key.shape[0] > seg:
-        S = key.shape[0] // seg
-
-        def shape(x):
-            return x.reshape(S, seg)
-
-        def unshape(x):
-            return x.reshape(-1)
-    else:
-        shape = unshape = lambda x: x
+def _sort_by(key, arrays):
+    """Reorder arrays by ascending key via ONE multi-operand lax.sort
+    (the wavefront compaction sorts of renderer/compact.py and
+    ops/volume_ops.py). (N,k) arrays ride as k scalar operands."""
     ops = [key]
     widths = []
     for a in arrays:
@@ -443,10 +293,7 @@ def _sort_by(key, arrays, seg=None):
         else:
             ops.extend(a[:, i] for i in range(a.shape[1]))
             widths.append(a.shape[1])
-    dim = 0 if shape is unshape else 1
-    out = jax.lax.sort(tuple(shape(o) for o in ops), dimension=dim,
-                       num_keys=1)[1:]
-    out = [unshape(o) for o in out]
+    out = jax.lax.sort(tuple(ops), num_keys=1)[1:]
     res = []
     i = 0
     for w in widths:
@@ -459,144 +306,30 @@ def _sort_by(key, arrays, seg=None):
     return res
 
 
+def _unsort(perm, arrays):
+    """Inverse of a _sort_by permutation: row i of each array goes back to
+    row perm[i] (perm: the lane ids that rode the forward sort). A
+    scatter, not a second sort by perm: XLA's GPU compiler rewrites a
+    sort keyed on a permutation into a scatter itself, and for mixed
+    s32/f32 operands that rewrite (permutation_sort_simplifier) emits
+    HLO its own verifier rejects."""
+    return [jnp.zeros_like(a).at[perm].set(a, unique_indices=True)
+            for a in arrays]
+
+
 def _prim_to_obj(scene, prim, is_sphere_hit):
     """Global prim id -> object id.
 
-    TPU note: a precomputed (P,) table gather, NOT jnp.searchsorted — the
-    binary search lowers to a serialized while_loop that cost ~25 ms per
-    bounce at 512^2 (it was the single dominant op in the whole pass)."""
+    A precomputed (P,) table lookup, not jnp.searchsorted: the binary
+    search lowers to a serialized while_loop over the wavefront."""
     from .gather import tgather
     return tgather(scene.prim_obj, prim)
 
 
-def cluster_key_hint(scene, cfg, it, ray_d, alive=None):
-    """Free wavefront sort key for the NEXT ray segment, from the current
-    hit's cluster id: (containing cluster, direction octant).
-
-    A ray leaving a surface starts inside its hit prim's cluster box, so
-    that cluster id is (at least) as good a coherence key as the
-    front-most-entered-cluster slab pass primary_cluster_key runs over
-    all C boxes (~75 ms at 512^2 x 1613 on v5e) — and it costs one
-    integer op. Any key is valid (keys only drive the sort); lanes
-    without a cluster id (miss / dead) pack last at 8*C. Returns None
-    when the cluster tier (shortlist path) is not active, letting
-    callers pass the result straight through as key_hint."""
-    if not cfg.use_cluster or it.cid is None:
-        return None
-    from .cluster_pallas import SHORTLIST
-    if not SHORTLIST:
-        return None
-    C = scene.cl_aabb.shape[0]
-    octant = ((ray_d[:, 0] > 0).astype(jnp.int32)
-              + 2 * (ray_d[:, 1] > 0).astype(jnp.int32)
-              + 4 * (ray_d[:, 2] > 0).astype(jnp.int32))
-    ok = it.cid >= 0
-    if alive is not None:
-        ok = ok & alive
-    return jnp.where(ok, it.cid * 8 + octant, 8 * C)
-
-
-def intersect_pair(scene, cfg, origin, d_shadow, shadow_max_t, d_next,
-                   alive=None, key_hint=None):
-    """Fused shadow any-hit + continuation closest-hit from a SHARED
-    origin wavefront: (occluded (N,) bool, Interaction).
-
-    Why: on the cluster tier every intersect call pays a multi-operand
-    wavefront sort, and the sort — not the Pallas sweep — is the
-    dominating cost on the big scenes (measured v5e, 512^2 incoherent
-    rays: 10-operand sort 110-131 ms vs 92-201 ms for the whole
-    two-phase closest kernel, scripts/bench_components.py). A PT bounce
-    issues both a shadow any-hit and a continuation closest-hit from the
-    SAME hit points, so their wavefronts share the one coherence key
-    that matters (the origin's cluster id); fusing them under ONE
-    sort/unsort pair replaces 2 sorts + 2 unsorts (10+10+3+2 operand
-    passes) with 1 sort + 1 unsort (13+4).
-
-    Semantics are identical to
-        does_intersect(origin, d_shadow, shadow_max_t, alive=alive),
-        ray_intersect(origin, d_next, alive=alive)
-    and the non-cluster tiers simply call that pair (they don't sort).
-    key_hint: see ray_intersect; it should key on d_next's octant (the
-    closest sweep profits more from direction coherence than the
-    early-exiting any-hit)."""
-    if not cfg.use_cluster:
-        occ = does_intersect(scene, cfg, origin, d_shadow, shadow_max_t,
-                             alive=alive)
-        it = ray_intersect(scene, cfg, origin, d_next, alive=alive)
-        return occ, it
-    from . import cluster_pallas as _cp
-    N = origin.shape[0]
-    sfar = jnp.full((N,), FAR, jnp.float32) if shadow_max_t is None \
-        else jnp.where(shadow_max_t > 0.0, shadow_max_t - RAY_EPS, FAR)
-    nfar = jnp.full((N,), FAR, jnp.float32)
-    if alive is not None:
-        sfar = jnp.where(alive, sfar, -3e38)
-        nfar = jnp.where(alive, nfar, -3e38)
-    if _cp.QPICK and _cp.SHORTLIST:
-        # queue-pick sorts each wavefront internally by its OWN front
-        # cluster (the shadow rays' coherence key, not the
-        # continuation's) — the fused outer sort and the key pass both
-        # drop out
-        occ = _cp.qpick_any(scene, origin, d_shadow, sfar)
-        t, wid = _cp.qpick_closest(scene, origin, d_next, nfar)
-        gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t, origin,
-                                                 d_next)
-        cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-        it = _assemble_interaction(scene, cfg, origin, d_next, t, gid,
-                                   u, v, jnp.zeros((N,), bool),
-                                   pre_ng=ng, pre_obj=obj,
-                                   pre_final=True, pre_cid=cid)
-        return occ, it
-    key = key_hint if key_hint is not None \
-        else _cp.primary_cluster_key(scene, origin, d_next, nfar)
-    o_s, ds_s, dn_s, sf_s, nf_s, pos = _sort_by(
-        key, [origin, d_shadow, d_next, sfar, nfar,
-              jnp.arange(N, dtype=jnp.int32)])
-    occ = _cp.cluster_any_hit(scene, o_s, ds_s, sf_s)
-    if _cp.SHORTLIST:
-        t, wid = _cp.cluster_closest_raw(scene, o_s, dn_s, nf_s)
-        occ, t, wid = _sort_by(pos, [occ, t, wid])
-        gid, u, v, ng, obj = _cp._resolve_winner(scene, wid, t, origin,
-                                                 d_next)
-        cid = jnp.where(wid >= 0, wid // scene.cl_rows.shape[2], -1)
-        it = _assemble_interaction(scene, cfg, origin, d_next, t, gid, u,
-                                   v, jnp.zeros((N,), bool), pre_ng=ng,
-                                   pre_obj=obj, pre_final=True,
-                                   pre_cid=cid)
-        return occ, it
-    t, gid, u, v, ng, obj = _cp.cluster_closest_hit(scene, o_s, dn_s,
-                                                    nf_s)
-    occ, t, gid, u, v, ng, obj = _sort_by(pos,
-                                          [occ, t, gid, u, v, ng, obj])
-    it = _assemble_interaction(scene, cfg, origin, d_next, t, gid, u, v,
-                               jnp.zeros((N,), bool), pre_ng=ng,
-                               pre_obj=obj, pre_final=True)
-    return occ, it
-
-
-def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
-                   key_hint=None):
+def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None):
     """Boolean occlusion test (shadow rays); any hit strictly before max_t.
 
-    alive: see ray_intersect — dead lanes return un-occluded.
-    key_hint: see ray_intersect."""
-    if cfg.use_cluster:
-        from .cluster_pallas import cluster_any_hit, primary_cluster_key
-        from .cluster_pallas import QPICK, SHORTLIST
-        N = ray_o.shape[0]
-        far0 = jnp.full((N,), FAR, jnp.float32) if max_t is None \
-            else jnp.where(max_t > 0.0, max_t - RAY_EPS, FAR)
-        if alive is not None:
-            far0 = jnp.where(alive, far0, -3e38)
-        if QPICK and SHORTLIST:
-            # qpick_any sorts internally; outer key pass + sort drop out
-            return cluster_any_hit(scene, ray_o, ray_d, far0)
-        key = key_hint if key_hint is not None \
-            else primary_cluster_key(scene, ray_o, ray_d, far0)
-        ro_s, rd_s, far_s, pos = _sort_by(
-            key, [ray_o, ray_d, far0, jnp.arange(N, dtype=jnp.int32)])
-        occ = cluster_any_hit(scene, ro_s, rd_s, far_s)
-        return _sort_by(pos, [occ])[0]
+    alive: see ray_intersect — dead lanes return un-occluded."""
     if cfg.use_bvh and not cfg.use_pallas:
         from .bvh import traverse
         _t, prim, _u, _v = traverse(scene, ray_o, ray_d, max_t,
@@ -630,143 +363,3 @@ def does_intersect(scene, cfg, ray_o, ray_d, max_t=None, alive=None,
         ts = _sphere_hit(ray_o, ray_d, scene.sph_center, scene.sph_radius)
         occluded |= jnp.any((ts > RAY_EPS) & (ts < far[:, None]), axis=1)
     return occluded
-
-
-def _is_null_obj(scene, obj_id):
-    """Null BSDF flag per object id (medium boundary, bsdf.py:238-240)."""
-    from .gather import tgather
-    idx = jnp.maximum(obj_id, 0)
-    return (obj_id >= 0) & tgather(scene.mat_is_bsdf, idx) \
-        & (tgather(scene.mat_type, idx) < 0)
-
-
-def ray_track_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=2,
-                   all_null=False):
-    """Everything a media walk needs along each ray, in one batch.
-
-    The batched replacement for a restart-from-the-hit-point media walk
-    (reference vpt.py:101-137 re-intersects after every interface): the
-    walk only needs the closest BLOCKING (non-null) hit plus the null
-    medium interfaces in front of it. ONE Pallas pass extracts both from
-    the triangle set (ops/intersect_pallas.py _track_kernel); sphere
-    prims merge in here — null spheres contribute BOTH quadratic roots
-    (the walk sees entry then exit), non-null spheres tighten the
-    blocker. Lanes with more than K null interfaces raise `overflow` and
-    the caller re-walks them sequentially, so any K >= 1 is exact.
-
-    Returns (t_null (K, N), obj_null (K, N), dn_null (K, N), t_blk (N,),
-    obj_blk (N,), dn_blk (N,), overflow (N,)); depth-major so the small
-    K axis never pads HBM lanes (CLAUDE.md rule 8). Null slots: t = FAR
-    / obj = -1 / dn = 0 when missing, valid slots a prefix, dn =
-    dot(n_g, d) (the walk's enter/exit test). Hits accepted strictly
-    inside (RAY_EPS, max_t - RAY_EPS) with >= CHAIN_SEP separation — the
-    sequential walk's acceptance up to its restarted-origin rounding
-    (see intersect_pallas.CHAIN_SEP).
-
-    all_null=True treats every prim as an interface (t_blk = FAR): the
-    plain first-K-interfaces extraction the khit tests exercise.
-
-    Only for the small-scene Pallas tier (cfg.use_pallas); callers keep
-    the sequential walk elsewhere."""
-    N = ray_o.shape[0]
-    far0 = jnp.full((N,), FAR, jnp.float32) if max_t is None \
-        else jnp.where(max_t > 0.0, max_t - RAY_EPS, FAR)
-    if alive is not None:
-        far0 = jnp.where(alive, far0, -3e38)
-
-    T = scene.tri_n.shape[0]
-    S = scene.sph_center.shape[0]
-    assert cfg.use_pallas and T > 0, "ray_track_hits is the Pallas tier"
-    from .intersect_pallas import tri_track_hits, CHAIN_SEP
-    if all_null:
-        tri_null = jnp.ones((T,), bool)
-    else:
-        tri_null = _is_null_obj(scene, scene.tri_obj)
-    tn_, on_, dn_, tb, ob, db, ovf = tri_track_hits(
-        scene, ray_o, ray_d, far0, K, tri_null)
-    if S == 0:
-        return tn_, on_, dn_, tb, ob, db, ovf
-
-    # sphere roots: reference quadratic (tracer_base.py:183-198)
-    s2c = scene.sph_center[None, :, :] - ray_o[:, None, :]
-    cn2 = jnp.sum(s2c * s2c, axis=-1)                       # (N,S)
-    proj = jnp.einsum("nd,nsd->ns", ray_d, s2c)
-    r2 = (scene.sph_radius * scene.sph_radius)[None, :]
-    c2r = cn2 - proj * proj
-    hit_disc = c2r < r2
-    cut = jnp.sqrt(jnp.maximum(r2 - c2r, 0.0))
-    r_safe = jnp.maximum(scene.sph_radius, 1e-12)[None, :]
-    sph_obj = scene.sph_obj.astype(jnp.int32)
-    sph_null = jnp.ones((S,), bool) if all_null \
-        else _is_null_obj(scene, sph_obj)
-
-    roots_t, roots_dn = [], []
-    for sign in (-1.0, 1.0):
-        t_s = proj + sign * cut                             # (N,S)
-        ok = hit_disc & (t_s > RAY_EPS)
-        roots_t.append(jnp.where(ok, t_s, FAR))
-        roots_dn.append((t_s - proj) / r_safe)
-
-    # non-null spheres tighten the blocker (their first valid root)
-    if not all_null:
-        blk_t = [jnp.where(sph_null[None, :], FAR, rt).T       # (S,N)
-                 for rt in roots_t]
-        bt = jnp.concatenate([tb[None, :]] + blk_t, axis=0)    # (M,N)
-        bobj = jnp.concatenate(
-            [ob[None, :]] + [jnp.broadcast_to(sph_obj[:, None], (S, N))]
-            * 2, axis=0)
-        bdn = jnp.concatenate([db[None, :]]
-                              + [rd.T for rd in roots_dn], axis=0)
-        rows_b = jnp.arange(bt.shape[0], dtype=jnp.int32)[:, None]
-        tmin = jnp.min(bt, axis=0)
-        bi = jnp.min(jnp.where(bt == tmin[None, :], rows_b,
-                               bt.shape[0]), axis=0)
-        oh = rows_b == bi[None, :]
-        hitb = tmin < far0
-        tb = jnp.where(hitb, tmin, FAR)
-        ob = jnp.where(hitb, jnp.sum(jnp.where(oh, bobj, 0), axis=0), -1)
-        db = jnp.where(hitb, jnp.sum(jnp.where(oh, bdn, 0.0), axis=0), 0.0)
-
-    # null sphere roots merge into the interface chain
-    t_cut = jnp.minimum(tb, far0)
-    cand_t = [jnp.where(tn_ < t_cut[None, :], tn_, FAR), ]
-    cand_obj = [on_]
-    cand_dn = [dn_]
-    for rt, rdn in zip(roots_t, roots_dn):
-        ok = sph_null[None, :] & (rt < t_cut[:, None])
-        cand_t.append(jnp.where(ok, rt, FAR).T)             # (S,N)
-        cand_obj.append(jnp.broadcast_to(sph_obj[:, None], (S, N)))
-        cand_dn.append(rdn.T)
-    mt = jnp.concatenate(cand_t, axis=0)                    # (M,N)
-    mobj = jnp.concatenate(cand_obj, axis=0)
-    mdn = jnp.concatenate(cand_dn, axis=0)
-    M = mt.shape[0]
-    rows = jnp.arange(M, dtype=jnp.int32)[:, None]
-
-    outs_t, outs_obj, outs_dn = [], [], []
-    prev = jnp.zeros((N,), jnp.float32)
-    for _k in range(K):
-        cand = jnp.where(mt > prev[None, :], mt, FAR)
-        bt_ = jnp.min(cand, axis=0)                         # (N,)
-        bi_ = jnp.min(jnp.where(cand == bt_[None, :], rows, M), axis=0)
-        oh = rows == bi_[None, :]
-        hit = bt_ < far0
-        outs_t.append(jnp.where(hit, bt_, FAR))
-        outs_obj.append(jnp.where(
-            hit, jnp.sum(jnp.where(oh, mobj, 0), axis=0), -1))
-        outs_dn.append(jnp.where(
-            hit, jnp.sum(jnp.where(oh, mdn, 0.0), axis=0), 0.0))
-        prev = bt_ + CHAIN_SEP
-    rem = jnp.min(jnp.where(mt > prev[None, :], mt, FAR), axis=0)
-    ovf = ovf | (rem < far0)
-    return (jnp.stack(outs_t), jnp.stack(outs_obj), jnp.stack(outs_dn),
-            tb, ob, db, ovf)
-
-
-def ray_k_hits(scene, cfg, ray_o, ray_d, max_t, alive=None, K=7):
-    """First K surface interfaces along each ray, front-to-back: the
-    all-null specialization of ray_track_hits (every prim an interface).
-    Returns (t, obj, dn) each (K, N); see ray_track_hits."""
-    tn_, on_, dn_, _tb, _ob, _db, _ovf = ray_track_hits(
-        scene, cfg, ray_o, ray_d, max_t, alive=alive, K=K, all_null=True)
-    return tn_, on_, dn_

@@ -1,16 +1,20 @@
-"""Pallas TPU kernel for wavefront ray-triangle intersection.
+"""Pallas (Triton route) kernels for small-scene ray-triangle intersection.
 
-Why this exists: the jnp brute-force scan (ops/intersect.py) is HBM-bound —
-xprof on the cbox 512^2 PT dispatch shows ~64% of device self-time in the
-chunk scan's reduce/select ops, because every (N, C) pair-dot intermediate
-(6 dot tables + t/u/v/valid) round-trips through HBM each scan step. This
-kernel keeps the whole per-tile working set in VMEM: rays stream in as
-(3, B) lane-major tiles, the full triangle SoA (small scenes only; BVH
-handles large ones) sits in VMEM across the grid, and only best-hit records
-leave the chip. The math is identical to ops/intersect.py `_tri_hit_chunk`
-(plane + dual-basis barycentric form, same op order, exact f32 on the VPU)
-so hit decisions agree with the jnp path (floats up to FMA-fusion rounding,
-~1 ULP; validated in tests/test_pallas_intersect.py).
+Why this exists: the jnp chunk scan (ops/intersect.py) evaluates every
+(ray, triangle) pair as an (N, C) table per scan step — six pair-dot
+tables, then t/u/v/valid, an argmin and one-hot selects — and XLA moves
+those tables through device memory between fusions. Here one program
+takes a tile of BLOCK rays, keeps them in registers, and loops over the
+triangle table one row at a time: the running closest hit (t, u, v,
+normal, object, prim id) stays in registers and nothing (N, C)-shaped is
+ever written. The table (<= 256 rows x 17 floats) is read as scalars that
+every thread of the block shares, so it lives in L1.
+
+The math is ops/intersect.py `_tri_hit_chunk` (plane + dual-basis
+barycentric form, same op order); hit decisions agree with the jnp path
+except where FMA contraction or the division's rounding moves a grazing
+hit across an edge (chip_smoke.py states the bounds and checks them on
+the card).
 
 Reference behavior: tracer_base.py:199-214 (triangle test contract),
 ray_intersect/does_intersect dispatch (tracer_base.py:159-278).
@@ -22,310 +26,151 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 RAY_EPS = 1e-4
 FAR = 1e7
-# K-hit chain separation: successive accepted interfaces must be more
-# than this apart. HALF the sequential walk's RAY_EPS on purpose: scenes
-# eps-layer adjacent surfaces exactly RAY_EPS apart (e.g. the vpt cbox
-# null box sits 1e-4 above the floor, reference convention), and the
-# restart walk measures that separation at t'~1e-4 scale (accepts
-# robustly) while the chain measures it as a global-t subtraction whose
-# f32 rounding (~1 ulp of t) makes a full-eps margin a coin flip. Half
-# eps keeps the coincident-duplicate rejection and accepts the
-# eps-layered convention with ~0.5e-4 of rounding headroom.
-CHAIN_SEP = 0.5 * RAY_EPS
-LANE_B = 2048          # rays per grid step (4096 measured worse: VMEM
-                       # pressure degrades the DMA pipeline)
-MAX_PALLAS_TRIS = 256  # above this the BVH path is the right tool
+BLOCK = 128            # rays per program (one per thread at 4 warps)
+NUM_WARPS = 4
 
-_INTERPRET = False     # flipped by tests on backends without Mosaic
+# table columns: n(0:3) d(3) U(4:7) cu(7) V(8:11) cv(11) n_g(12:15)
+# obj(15) gid(16); ints ride f32 (exact below 2^24)
+_N_COLS = 17
+
+_INTERPRET = False     # tests flip this to run the kernels on the CPU
 
 
-def _dot3(tab, vec):
-    """(Tp,3) x (3,B) -> (Tp,B) exact f32 dots on the VPU.
-
-    Same multiply/add order as ops/intersect.py `_pair_dots` (sum over a
-    size-3 axis) so results match the jnp path up to FMA rounding.
-    Measured: routing these through the MXU (dot_general, HIGHEST) is
-    1.4x SLOWER end-to-end — at K=3 the systolic array does no useful
-    work, confirming the repo-wide no-matmul rule for geometry."""
-    return (tab[:, 0:1] * vec[0:1, :] + tab[:, 1:2] * vec[1:2, :]) \
-        + tab[:, 2:3] * vec[2:3, :]
-
-
-def _tri_kernel(ro_ref, rd_ref, far_ref, tn_ref, td_ref, tU_ref, tV_ref,
-                tcu_ref, tcv_ref, tobj_ref, tng_ref, t_out, idx_out, u_out,
-                v_out, ng_out, obj_out):
-    ro = ro_ref[:]                     # (3, B)
-    rd = rd_ref[:]
-    tn = tn_ref[:]                     # (Tp, 3); zero rows on padding
-    Tp = tn.shape[0]
-
-    o_n = _dot3(tn, ro)
-    d_n = _dot3(tn, rd)
-    o_u = _dot3(tU_ref[:], ro)
-    d_u = _dot3(tU_ref[:], rd)
-    o_v = _dot3(tV_ref[:], ro)
-    d_v = _dot3(tV_ref[:], rd)
-
-    denom = jnp.where(jnp.abs(d_n) < 1e-12, 1e-12, d_n)
-    t = (td_ref[:] - o_n) / denom      # td_ref (Tp, 1) broadcasts
-    u = o_u + t * d_u - tcu_ref[:]
-    v = o_v + t * d_v - tcv_ref[:]
-    valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_EPS) \
-        & (jnp.abs(d_n) >= 1e-12)      # padding rows have d_n == 0
-    tm = jnp.where(valid, t, FAR)
-
-    best_t = jnp.min(tm, axis=0, keepdims=True)              # (1, B)
-    row = jax.lax.broadcasted_iota(jnp.int32, tm.shape, 0)
-    # first row achieving the min == jnp.argmin semantics
-    best_i = jnp.min(jnp.where(tm == best_t, row, Tp), axis=0,
-                     keepdims=True)
-    hit = best_t < far_ref[:]
-    one_hot = row == best_i
-
-    def sel(vals, miss):
-        return jnp.where(hit, jnp.sum(jnp.where(one_hot, vals, 0.0),
-                                      axis=0, keepdims=True), miss)
-
-    t_out[:] = jnp.where(hit, best_t, far_ref[:])
-    idx_out[:] = jnp.where(hit, best_i, -1)
-    u_out[:] = sel(u, 0.0)
-    v_out[:] = sel(v, 0.0)
-    # geometric normal from the VMEM table (the OBJ loader's n_g, which
-    # differs from the plane normal tn by ~1 ULP rounding); (1,0,0) on a
-    # miss matches _assemble_interaction's default_n
-    tng = tng_ref[:]
-    ng_out[0:1, :] = sel(tng[:, 0:1], 1.0)
-    ng_out[1:2, :] = sel(tng[:, 1:2], 0.0)
-    ng_out[2:3, :] = sel(tng[:, 2:3], 0.0)
-    obj_out[:] = jnp.where(
-        hit, jnp.sum(jnp.where(one_hot, tobj_ref[:], 0), axis=0,
-                     keepdims=True), -1)
+def _table(scene):
+    """(T, 17) f32 triangle rows for the kernels."""
+    f = jnp.float32
+    return jnp.concatenate([
+        scene.tri_n, scene.tri_d[:, None], scene.tri_U,
+        scene.tri_cu[:, None], scene.tri_V, scene.tri_cv[:, None],
+        scene.prim_ng[scene.tri_gid],
+        scene.tri_obj[:, None].astype(f), scene.tri_gid[:, None].astype(f),
+    ], axis=1).astype(f)
 
 
-def _occ_kernel(ro_ref, rd_ref, far_ref, tn_ref, td_ref, tU_ref, tV_ref,
-                tcu_ref, tcv_ref, tobj_ref, tng_ref, occ_out):
-    ro = ro_ref[:]
-    rd = rd_ref[:]
-    tn = tn_ref[:]
-
-    o_n = _dot3(tn, ro)
-    d_n = _dot3(tn, rd)
-    o_u = _dot3(tU_ref[:], ro)
-    d_u = _dot3(tU_ref[:], rd)
-    o_v = _dot3(tV_ref[:], ro)
-    d_v = _dot3(tV_ref[:], rd)
-
-    denom = jnp.where(jnp.abs(d_n) < 1e-12, 1e-12, d_n)
-    t = (td_ref[:] - o_n) / denom
-    u = o_u + t * d_u - tcu_ref[:]
-    v = o_v + t * d_v - tcv_ref[:]
-    valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_EPS) \
-        & (jnp.abs(d_n) >= 1e-12) & (t < far_ref[:])
-    occ_out[:] = jnp.any(valid, axis=0, keepdims=True)
-
-
-def _track_kernel(ro_ref, rd_ref, far_ref, tn_ref, td_ref, tU_ref, tV_ref,
-                  tcu_ref, tcv_ref, tobj_ref, tng_ref, tnull_ref, t_out,
-                  obj_out, dn_out, tb_out, ob_out, db_out, ov_out, *, K):
-    """Everything a media walk needs along each ray, in ONE pass.
-
-    A restart-from-the-hit-point walk (reference vpt.py:101-137) only
-    cares about (a) the closest BLOCKING (non-null) hit — the walk ends
-    there — and (b) the null medium interfaces in front of it. This
-    kernel does the hit math once (same plane + dual-basis form as
-    _tri_kernel; the sequential walk relaunched it 5.2x/bounce on the
-    16-bounce cbox, 33% of device time) and splits extraction by the
-    per-prim null flag: one min pass for the blocker, K eps-chained
-    extract passes over the (few) null prims. Lanes with more than K
-    null interfaces before the blocker raise the overflow flag and the
-    caller re-walks them sequentially, so any K is exact.
-
-    Null picks are eps-chained (pick k+1 only sees t > t_k + CHAIN_SEP)
-    and clipped strictly before the blocker. Outputs: (K, B) null slots
-    t/obj/dn (FAR/-1/0 on missing slots, valid slots a prefix; dn =
-    dot(n_g, d) — the walk's enter/exit test), (1, B) blocker t/obj/dn,
-    (1, B) i32 overflow flag. With tnull all-ones this degenerates to a
-    plain first-K-interfaces extraction (no blocker, t_blk = FAR)."""
-    ro = ro_ref[:]
-    rd = rd_ref[:]
-    tn = tn_ref[:]
-    Tp = tn.shape[0]
-
-    o_n = _dot3(tn, ro)
-    d_n = _dot3(tn, rd)
-    o_u = _dot3(tU_ref[:], ro)
-    d_u = _dot3(tU_ref[:], rd)
-    o_v = _dot3(tV_ref[:], ro)
-    d_v = _dot3(tV_ref[:], rd)
-    dn_g = _dot3(tng_ref[:], rd)       # (Tp, B) table-normal dots
-
-    denom = jnp.where(jnp.abs(d_n) < 1e-12, 1e-12, d_n)
-    t = (td_ref[:] - o_n) / denom
-    u = o_u + t * d_u - tcu_ref[:]
-    v = o_v + t * d_v - tcv_ref[:]
-    valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_EPS) \
-        & (jnp.abs(d_n) >= 1e-12)
-    tm = jnp.where(valid, t, FAR)
-    row = jax.lax.broadcasted_iota(jnp.int32, tm.shape, 0)
-    tobj = jnp.broadcast_to(tobj_ref[:], tm.shape)
-    far = far_ref[:]
-    is_null = tnull_ref[:] > 0.0       # (Tp, 1) broadcasts
-
-    def pick(cand):
-        best_t = jnp.min(cand, axis=0, keepdims=True)          # (1, B)
-        best_i = jnp.min(jnp.where(cand == best_t, row, Tp), axis=0,
-                         keepdims=True)
-        one_hot = row == best_i
-        o = jnp.sum(jnp.where(one_hot, tobj, 0), axis=0, keepdims=True)
-        d = jnp.sum(jnp.where(one_hot, dn_g, 0.0), axis=0, keepdims=True)
-        return best_t, o, d
-
-    # closest blocker (any non-null prim ends the walk)
-    t_blk, o_blk, d_blk = pick(jnp.where(is_null, FAR, tm))
-    hit_b = t_blk < far
-    tb_out[:] = jnp.where(hit_b, t_blk, FAR)
-    ob_out[:] = jnp.where(hit_b, o_blk, -1)
-    db_out[:] = jnp.where(hit_b, d_blk, 0.0)
-    t_cut = jnp.minimum(t_blk, far)
-
-    # K eps-chained null interfaces strictly before the blocker
-    tm_n = jnp.where(is_null & (tm < t_cut), tm, FAR)
-    prev = jnp.zeros_like(far)
-    for k in range(K):
-        cand = jnp.where(tm_n > prev, tm_n, FAR)
-        best_t, o, d = pick(cand)
-        hit = best_t < far
-        t_out[k:k + 1, :] = jnp.where(hit, best_t, FAR)
-        obj_out[k:k + 1, :] = jnp.where(hit, o, -1)
-        dn_out[k:k + 1, :] = jnp.where(hit, d, 0.0)
-        prev = best_t + CHAIN_SEP
-    # any null candidate left beyond the chain -> caller re-walks the lane
-    rem = jnp.min(jnp.where(tm_n > prev, tm_n, FAR), axis=0, keepdims=True)
-    ov_out[:] = (rem < far).astype(jnp.int32)
-
-
-def tri_track_hits(scene, ray_o, ray_d, far0, K, null_flags):
-    """Kernel wrapper: K eps-chained null-interface hits + the closest
-    blocker + overflow, per ray.
-
-    null_flags: (T,) bool per triangle (True = null medium boundary).
-    Returns (t_null (K, N), obj_null (K, N), dn_null (K, N), t_blk (N,),
-    obj_blk (N,), dn_blk (N,), overflow (N,)) — depth-major so the small
-    K axis never pads HBM lanes."""
+def _ray_columns(ray_o, ray_d, far0):
+    """Seven (Np,) ray columns padded to a BLOCK multiple; pad lanes get a
+    unit direction and a dead far clip so they never hit."""
     N = ray_o.shape[0]
-    tris = _pad_tris(scene)
+    Np = -(-N // BLOCK) * BLOCK
+
+    def pad(x, fill):
+        return jnp.pad(x, (0, Np - N), constant_values=fill)
+
+    cols = [pad(ray_o[:, k], 0.0) for k in range(3)] \
+        + [pad(ray_d[:, k], 1.0) for k in range(3)] + [pad(far0, -3e38)]
+    return cols, Np
+
+
+def _tri_test(tab, i, o, d):
+    """Row i of the table against the block's rays -> (t, u, v, valid)."""
+    def dot(v, c):
+        return (v[0] * tab[i, c] + v[1] * tab[i, c + 1]) \
+            + v[2] * tab[i, c + 2]
+
+    o_n, d_n = dot(o, 0), dot(d, 0)
+    o_u, d_u = dot(o, 4), dot(d, 4)
+    o_v, d_v = dot(o, 8), dot(d, 8)
+    small = jnp.abs(d_n) < 1e-12
+    t = (tab[i, 3] - o_n) / jnp.where(small, 1e-12, d_n)
+    u = o_u + t * d_u - tab[i, 7]
+    v = o_v + t * d_v - tab[i, 11]
+    valid = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_EPS) \
+        & ~small
+    return t, u, v, valid
+
+
+def _load_rays(refs):
+    ox, oy, oz, dx, dy, dz, far = (r[...] for r in refs)
+    return (ox, oy, oz), (dx, dy, dz), far
+
+
+def _closest_kernel(*refs, n_tris):
+    o, d, far = _load_rays(refs[:7])
+    tab = refs[7]
+    t_out, gid_out, u_out, v_out, ng0_out, ng1_out, ng2_out, obj_out = \
+        refs[8:]
+    zero = jnp.zeros_like(far)
+    neg = jnp.full(far.shape, -1.0, jnp.float32)
+
+    def body(i, c):
+        bt, bu, bv, n0, n1, n2, bo, bg = c
+        t, u, v, valid = _tri_test(tab, i, o, d)
+        # strict < keeps the first row on ties (jnp.argmin semantics)
+        better = valid & (t < bt)
+
+        def sel(new, old):
+            return jnp.where(better, new, old)
+
+        return (sel(t, bt), sel(u, bu), sel(v, bv), sel(tab[i, 12], n0),
+                sel(tab[i, 13], n1), sel(tab[i, 14], n2), sel(tab[i, 15], bo),
+                sel(tab[i, 16], bg))
+
+    # miss defaults: t = far, n_g = (1, 0, 0) (_assemble_interaction's
+    # default_n), obj = gid = -1
+    init = (far, zero, zero, zero + 1.0, zero, zero, neg, neg)
+    bt, bu, bv, n0, n1, n2, bo, bg = jax.lax.fori_loop(0, n_tris, body,
+                                                       init)
+    t_out[...] = bt
+    u_out[...] = bu
+    v_out[...] = bv
+    ng0_out[...] = n0
+    ng1_out[...] = n1
+    ng2_out[...] = n2
+    obj_out[...] = bo.astype(jnp.int32)
+    gid_out[...] = bg.astype(jnp.int32)
+
+
+def _any_kernel(*refs, n_tris):
+    o, d, far = _load_rays(refs[:7])
+    tab, occ_out = refs[7], refs[8]
+
+    def body(i, occ):
+        t, _u, _v, valid = _tri_test(tab, i, o, d)
+        return jnp.where(valid & (t < far), 1, occ)
+
+    occ_out[...] = jax.lax.fori_loop(0, n_tris, body,
+                                     jnp.zeros(far.shape, jnp.int32))
+
+
+def _call(kernel, scene, ray_o, ray_d, far0, out_dtypes, name):
     T = scene.tri_n.shape[0]
-    Tp = tris[0].shape[0]
-    nf = jnp.pad(null_flags.astype(jnp.float32), (0, Tp - T)) \
-        .reshape(Tp, 1)
-    ro, rd, far, Np = _ray_blocks(ray_o, ray_d, far0)
-    grid, in_specs, out_spec = _specs(Np)
-    k_spec = pl.BlockSpec((K, LANE_B), lambda i: (0, i),
-                          memory_space=pltpu.VMEM)
-    tnull, onull, dnull, tb, ob, db, ov = pl.pallas_call(
-        functools.partial(_track_kernel, K=K),
-        grid=grid,
-        in_specs=in_specs + [pl.BlockSpec(memory_space=pltpu.VMEM)],
-        out_specs=[k_spec] * 3 + [out_spec] * 4,
-        out_shape=[jax.ShapeDtypeStruct((K, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((K, Np), jnp.int32),
-                   jax.ShapeDtypeStruct((K, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.int32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.int32)],
+    cols, Np = _ray_columns(ray_o, ray_d, far0)
+    ray_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    tab_spec = pl.BlockSpec((T, _N_COLS), lambda i: (0, 0))
+    outs = pl.pallas_call(
+        functools.partial(kernel, n_tris=T),
+        grid=(Np // BLOCK,),
+        in_specs=[ray_spec] * 7 + [tab_spec],
+        out_specs=[ray_spec] * len(out_dtypes),
+        out_shape=[jax.ShapeDtypeStruct((Np,), dt) for dt in out_dtypes],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=_INTERPRET,
-    )(ro, rd, far, *tris, nf)
-    return (tnull[:, :N], onull[:, :N], dnull[:, :N], tb[0, :N],
-            ob[0, :N], db[0, :N], ov[0, :N].astype(bool))
-
-
-def _pad_tris(scene):
-    """Triangle SoA padded to a sublane multiple; zero normals mark pads."""
-    T = scene.tri_n.shape[0]
-    Tp = max(8, -(-T // 8) * 8)
-    pad = Tp - T
-
-    def p(x, fill=0):
-        width = [(0, pad)] + [(0, 0)] * (x.ndim - 1)
-        return jnp.pad(x, width, constant_values=fill)
-
-    return (p(scene.tri_n), p(scene.tri_d).reshape(Tp, 1),
-            p(scene.tri_U), p(scene.tri_V),
-            p(scene.tri_cu).reshape(Tp, 1), p(scene.tri_cv).reshape(Tp, 1),
-            p(scene.tri_obj, -1).reshape(Tp, 1),
-            p(scene.prim_ng[scene.tri_gid]))
-
-
-def _ray_blocks(ray_o, ray_d, far0):
-    """Lane-major (3, Np) rays padded to a LANE_B multiple."""
-    N = ray_o.shape[0]
-    Np = -(-N // LANE_B) * LANE_B
-    ro = jnp.pad(ray_o.T, ((0, 0), (0, Np - N)))
-    rd = jnp.pad(ray_d.T, ((0, 0), (0, Np - N)), constant_values=1.0)
-    far = jnp.pad(far0.reshape(1, N), ((0, 0), (0, Np - N)))
-    return ro, rd, far, Np
-
-
-@functools.lru_cache(maxsize=None)
-def _specs(Np):
-    grid = (Np // LANE_B,)
-    ray_spec = pl.BlockSpec((3, LANE_B), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-    far_spec = pl.BlockSpec((1, LANE_B), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-    tri_spec = pl.BlockSpec(memory_space=pltpu.VMEM)   # whole table resident
-    out_spec = pl.BlockSpec((1, LANE_B), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-    return grid, [ray_spec, ray_spec, far_spec] + [tri_spec] * 8, out_spec
+        name=name,
+    )(*cols, _table(scene))
+    return [x[:ray_o.shape[0]] for x in outs]
 
 
 def tri_closest_hit(scene, ray_o, ray_d, far0):
     """Closest triangle hit for a ray batch.
 
-    Returns (t, tri_row, u, v, n_g, obj): t = far0, tri_row/obj = -1 and
-    n_g = (1,0,0) on miss; tri_row indexes scene.tri_* (map to a global
-    prim id via scene.tri_gid). n_g/obj come straight from the kernel's
-    VMEM tables, saving two HBM-wide one-hot gathers downstream."""
-    N = ray_o.shape[0]
-    tris = _pad_tris(scene)
-    ro, rd, far, Np = _ray_blocks(ray_o, ray_d, far0)
-    grid, in_specs, out_spec = _specs(Np)
-    ng_spec = pl.BlockSpec((3, LANE_B), lambda i: (0, i),
-                           memory_space=pltpu.VMEM)
-    t, idx, u, v, ng, obj = pl.pallas_call(
-        _tri_kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[out_spec] * 4 + [ng_spec, out_spec],
-        out_shape=[jax.ShapeDtypeStruct((1, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.int32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((3, Np), jnp.float32),
-                   jax.ShapeDtypeStruct((1, Np), jnp.int32)],
-        interpret=_INTERPRET,
-    )(ro, rd, far, *tris)
-    return (t[0, :N], idx[0, :N], u[0, :N], v[0, :N], ng[:, :N].T,
-            obj[0, :N])
+    Returns (t, gid, u, v, n_g, obj): t = far0, gid/obj = -1, u = v = 0
+    and n_g = (1, 0, 0) on a miss; gid is the global prim id. Hits count
+    only strictly before far0."""
+    f, i = jnp.float32, jnp.int32
+    t, gid, u, v, n0, n1, n2, obj = _call(
+        _closest_kernel, scene, ray_o, ray_d, far0,
+        (f, i, f, f, f, f, f, i), "tri_closest_hit")
+    return t, gid, u, v, jnp.stack([n0, n1, n2], axis=-1), obj
 
 
 def tri_any_hit(scene, ray_o, ray_d, far0):
     """True where any triangle lies strictly before far0."""
-    N = ray_o.shape[0]
-    tris = _pad_tris(scene)
-    ro, rd, far, Np = _ray_blocks(ray_o, ray_d, far0)
-    grid, in_specs, out_spec = _specs(Np)
-    occ = pl.pallas_call(
-        _occ_kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((1, Np), jnp.bool_),
-        interpret=_INTERPRET,
-    )(ro, rd, far, *tris)
-    return occ[0, :N]
+    (occ,) = _call(_any_kernel, scene, ray_o, ray_d, far0, (jnp.int32,),
+                   "tri_any_hit")
+    return occ > 0

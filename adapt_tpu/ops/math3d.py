@@ -76,9 +76,9 @@ def rotate_between_apply(fixed, target, v):
     """Apply the Rodrigues rotation taking `fixed` to `target` directly to
     vector(s) v, without materializing (N,3,3) matrices.
 
-    TPU note: building rotation matrices and batch-matvec'ing them lowers to
-    (N,3,3)x(N,3) dot_generals — pathological MXU shapes at wavefront batch
-    sizes. v' = v cos + (axis x v) + k (k.v)(1-cos) is pure VPU elementwise.
+    Building rotation matrices and batch-matvec'ing them lowers to
+    (N,3,3)x(N,3) dot_generals, a poor shape at wavefront batch sizes;
+    v' = v cos + (axis x v) + k (k.v)(1-cos) is pure elementwise.
     Matches rotation_between (la/cam_transform.py:51-68) incl. the +/-v
     fallback at (anti)parallel inputs."""
     fixed = jnp.broadcast_to(fixed, target.shape)

@@ -39,8 +39,9 @@ import os as _os
 # VOL_J in exactly the dimension that made J-batching lose: the gather
 # count per ray drops from (hops + candidates) to ~(candidates +
 # hops/VOL_HOPS) — it removes gather PASSES, not just loop iterations.
-# Hop sub-steps cost only the one-hot sv-majorant lookup (no HBM random
-# access). VOL_HOPS=1 reproduces the old per-step-gather cost shape.
+# Hop sub-steps cost only the one-hot sv-majorant lookup (no random
+# device-memory access). VOL_HOPS=1 reproduces the old per-step-gather
+# cost shape.
 VOL_HOPS = int(_os.environ.get("ADAPT_VOL_HOPS", "4"))
 # Reverse-mode differentiable tracking (r5, VERDICT r4 #7): lax.while_loop
 # has no reverse-mode AD rule, so when DIFF_STEPS > 0 the ratio-tracking
@@ -119,10 +120,10 @@ def dummy_volume() -> GridVolumeData:
 
 
 # Supervoxel grid axis cap: higher = finer supervoxels = tighter local
-# majorants = fewer collision candidates (the 78%-of-device-time density
-# gathers), at the cost of a bigger factorized one-hot lookup (row dim
-# 3*SZ*SY: 192 at cap 8, 768 at cap 16) and more DDA hops. Swept on chip
-# (r5, VERDICT r4 #3) via scripts/sweep_sv.py; env knob for A/B.
+# majorants = fewer collision candidates (fewer density gathers), at the
+# cost of a bigger factorized one-hot lookup (row dim 3*SZ*SY: 192 at
+# cap 8, 768 at cap 16) and more DDA hops. Chosen by a sweep on another
+# accelerator (scripts/sweep_sv.py); not re-swept on the GPU yet.
 SV_AXIS_CAP = int(_os.environ.get("ADAPT_SV_CAP", "16"))
 
 
@@ -161,12 +162,10 @@ def compile_volume(rec) -> GridVolumeData:
     grid_cm = np.moveaxis(rec.density_grid, -1, 0)
     sv_size, sv_maj = _supervoxel_majorants(grid_cm)
     return GridVolumeData(
-        # channel-major (3, Z, Y, X): a trailing size-3 axis would be the
-        # minor dim of a ~GB HBM array and pad 3 -> 128 lanes under TPU
-        # (8,128) tiling (CLAUDE.md rule 8: measured 9.8x on the BDPT
-        # vertex buffers) — 43x memory for the 256^3 tornado grid — and
-        # every per-lane gather would fetch all three channels' tiles
-        # when the march only ever consumes the picked one.
+        # channel-major (3, Z, Y, X): each channel is one contiguous
+        # (Z, Y, X) volume, so a per-lane gather of the picked channel
+        # never drags the other two channels' values along (a trailing
+        # size-3 axis can also pad badly in tiled layouts).
         grid=jnp.asarray(grid_cm),
         albedo=jnp.asarray(rec.albedo),
         inv_T=jnp.asarray(rec.inv_T),
@@ -245,12 +244,9 @@ def _density_index(vol, pos, u3):
 def _gather_candidates(vol, ch, idx_list, ok_list):
     """ONE J-major flattened gather for a round's J candidate lookups.
 
-    The march loops' wall cost is dominated by per-iteration overhead
-    around the per-lane HBM gather (rgbvol full-render profile
-    2026-08-20: 397 while-iterations/spp, device self 381 ms of an
-    840 ms wall); batching J candidates per iteration pays the same
-    gather elements in J x fewer iterations. J-major (concatenate, not
-    (n, J) minor) so no small-axis lane padding (CLAUDE.md rule 8)."""
+    Batching J candidates per iteration pays the same gather elements in
+    J x fewer loop iterations. J-major (concatenate, not (n, J) minor)
+    so the small J axis is never the minor one."""
     n = ch.shape[0]
     J = len(idx_list)
     if _ABLATE == "const_density":   # timing-only: sizes the gather cost
@@ -282,12 +278,11 @@ def _sv_lookup(vol, svi, ch):
     """Local majorant at integer supervoxel coords svi (n,3)=(x,y,z) for
     the picked channel.
 
-    Factorized one-hot instead of a per-lane gather (CLAUDE.md rule 1):
-    one MXU contraction over the (ch, z, y) rows (<= 3*8*8 = 192 by
-    SV_AXIS_CAP) followed by a VPU lane-select over x. One-hot weights
-    are bf16-exact, and the package pins matmul precision to highest, so
-    the lookup reproduces table values exactly — a rounded-down majorant
-    would break the tracking's correctness."""
+    Factorized one-hot instead of a per-lane gather: one matmul over the
+    (ch, z, y) rows (<= 3*16*16 = 768 by SV_AXIS_CAP) followed by an
+    elementwise lane-select over x. The package pins matmul precision to
+    highest (no TF32), so the lookup reproduces table values exactly — a
+    rounded-down majorant would break the tracking's correctness."""
     M = vol.sv_maj
     _, SZ, SY, SX = M.shape
     rows = 3 * SZ * SY
@@ -345,8 +340,7 @@ def _one_hot_tr(kind, tr, pdf, ch):
 
 
 # Compaction slice width as a fraction of the wavefront: the tracking
-# loops' cost is per-lane HBM density gathers (~10 ns/element on v5e,
-# measured in scripts/bench_gather.py), and typically only a small
+# loops' cost is per-lane density gathers, and typically only a small
 # fraction of lanes even cross the volume AABB (10.9% of cbox-rgbvol
 # camera rays, scripts/bench_volume.py). Crossing lanes are sorted to the
 # front (one multi-operand lax.sort, ~1 ms at 262k) and the stochastic
@@ -373,7 +367,7 @@ def _compact_rounds(crossing, inputs, outputs, round_fn):
         # fixed-trip fori_loop there)
         return round_fn(jnp.int32(0), inputs, outputs, crossing)
 
-    from .intersect import _sort_by
+    from .intersect import _sort_by, _unsort
     C = -(-N // _COMPACT_DIV)
     C = -(-C // 128) * 128                  # lane-aligned slice
     lane = jnp.arange(N, dtype=jnp.int32)
@@ -382,10 +376,8 @@ def _compact_rounds(crossing, inputs, outputs, round_fn):
     # their lane (treating original-order defaults as sorted-space would
     # silently hand lanes each other's state; today's callers pass
     # constants, but the contract allows e.g. a running throughput)
-    # seg=0: the round count below needs GLOBAL front-compaction; a
-    # segmented sort (intersect.SORT_SEG) only compacts per segment
     vals = _sort_by(key_order, [inputs[k] for k in inputs]
-                    + [outputs[k] for k in outputs] + [lane], seg=0)
+                    + [outputs[k] for k in outputs] + [lane])
     ins_s = dict(zip(inputs, vals[:len(inputs)]))
     outs_s = dict(zip(outputs, vals[len(inputs):-1]))
     lane_s = vals[-1]
@@ -426,8 +418,8 @@ def _compact_rounds(crossing, inputs, outputs, round_fn):
     _, outs_s = jax.lax.while_loop(cond, body, (jnp.int32(0), outs_s))
     if pad_n:
         outs_s = {k: v[:N] for k, v in outs_s.items()}
-    # restore original lane order (sort by lane id — dense, no gathers)
-    restored = _sort_by(lane_s, [outs_s[k] for k in outputs], seg=0)
+    # restore original lane order
+    restored = _unsort(lane_s, [outs_s[k] for k in outputs])
     return dict(zip(outputs, restored))
 
 
@@ -470,11 +462,11 @@ def sample_distance_delta_tracking(vol, kind, key, ray_o, ray_d, thp,
             # registers — each sub-step either freezes at this lane's
             # next collision CANDIDATE or hops an (empty/cheap) cell —
             # then ONE density gather resolves the frozen candidates.
-            # The per-lane HBM gather (78% of rgbvol device time) now
-            # costs one n-wide pass per OUTER iteration, and outer
-            # iterations ~ candidates + hops/VOL_HOPS instead of
-            # candidates + hops. Hop sub-steps touch only the one-hot
-            # sv-majorant lookup (MXU contraction, no random access).
+            # The per-lane density gather now costs one n-wide pass per
+            # OUTER iteration, and outer iterations ~ candidates +
+            # hops/VOL_HOPS instead of candidates + hops. Hop sub-steps
+            # touch only the one-hot sv-majorant lookup (no random
+            # access).
             k = jax.random.fold_in(key, r * (MAX_STEPS + 1) + st["step"])
             u = jax.random.uniform(k, (n, VOL_HOPS + 4))
             t, exited = st["t"], st["done"]

@@ -1,13 +1,14 @@
 """Multi-chip SPMD rendering over a jax.sharding.Mesh.
 
 The reference has no distributed runtime at all (SURVEY.md §2.22: one Taichi
-megakernel on one GPU). The TPU-native scale-out is SPMD over ICI:
+megakernel on one GPU). The scale-out here is SPMD over a device mesh
+(on one host the cards are joined all to all by NVLink):
 
   * mesh axis 'px'  — the pixel wavefront is sharded across chips (each chip
     traces its own slice of the film; the scene is replicated);
   * mesh axis 'spp' — independent sample batches per chip, combined with a
-    single `pmean` over the framebuffer (the only collective in the system,
-    riding ICI).
+    single `pmean` over the framebuffer (the only collective in the
+    system).
 
 Both axes are embarrassingly parallel, so scaling is linear; the collective
 moves W*H*3 floats once per (spp-group) pass.
@@ -73,7 +74,7 @@ def render_pass_multichip(scene, cfg, mesh: Mesh, trace_fn):
         pix = px_i * shard_n + jnp.arange(shard_n, dtype=jnp.int32)
         ray_o, ray_d = camera_rays(scene, cfg, k_cam, cnt, pix_ids=pix)
         color = trace_fn(scene, cfg, k_trace, ray_o, ray_d)
-        # the one collective: average the spp groups' framebuffers over ICI
+        # the one collective: average the spp groups' framebuffers
         return jax.lax.pmean(color, "spp")
 
     step = shard_map(_shard_fn, mesh=mesh,

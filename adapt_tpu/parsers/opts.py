@@ -63,9 +63,10 @@ def get_options(argv=None):
                         choices=["png", "jpg", "bmp", "npy"])
     parser.add_argument("--scene", type=str, default="cbox")
     parser.add_argument("--name", type=str, default="cbox.xml")
-    parser.add_argument("--arch", type=str, default="tpu",
-                        choices=["tpu", "cpu", "gpu"],
-                        help="jax platform to run on")
+    parser.add_argument("--arch", type=str, default="gpu",
+                        choices=["gpu", "cpu"],
+                        help="jax platform to run on; gpu pins CUDA and "
+                             "fails where there is no card")
     parser.add_argument("--type", type=str, default="pt",
                         choices=["pt", "vpt", "bdpt", "ao", "direct"])
     parser.add_argument("--multichip", type=int, default=0, metavar="N",

@@ -1,6 +1,6 @@
 """Wavefront bidirectional path tracer (reference renderer/bdpt.py).
 
-TPU-native redesign: both subpaths are generated by batched random walks
+Wavefront redesign: both subpaths are generated by batched random walks
 that scatter into fixed-size depth-major SoA vertex buffers ((D, N)
 scalars / (3, D, N) vec3, see _vertex_buffers); every
 (t, s) connection strategy is a fully-unrolled batched evaluation (t and s
@@ -30,7 +30,7 @@ from ..constants import (VERTEX_SURFACE, VERTEX_MEDIUM, VERTEX_EMITTER,
                          EmitterTag)
 from ..ops import bxdf_ops, emitter_ops, medium_ops
 from ..ops.gather import tgather
-from ..ops.intersect import ray_intersect, Interaction, cluster_key_hint
+from ..ops.intersect import ray_intersect, Interaction
 from ..ops.math3d import dot, normalize, norm
 from ..ops.texture_ops import get_uv_item, process_ns
 from .base import ProgressiveRenderer, camera_rays, crop_mask
@@ -57,38 +57,29 @@ NULL_BUDGET = 4
 # monkeypatch FLAT_MAX_CHUNKS=0 to force-cover the scan path at toy N
 FLAT_LANES = 4 << 20
 FLAT_MAX_CHUNKS = 4
-# LENGTH-COMPACTION (VERDICT r4 #2): RECORDED DEAD END for BDPT, by
-# arithmetic rather than a build — the lever PT/VPT shipped (renderer/
-# compact.py) requires the state to ride ONE multi-operand lax.sort,
-# and for BDPT that state is the (D,N) vertex buffers (~22 fields x
-# D=7 rows = ~160 (N,) operands at N=512^2). The sort's COMPILE time
-# scales ~linearly in operands x N and was measured walking off a
-# cliff far below that (4 ops at 262k = 106 s, 12 ops at 65k = 139 s,
-# 25 ops at 65k never returned in 40 min — compact.run_compacted
-# docstring); ~160 ops at 262k extrapolates to >1 h. The PT/VPT escape
-# (slim core + re-intersect restore) does not exist here: the buffers
-# ARE the walk's product, not recomputable from a slim core without
-# re-running the walk being saved. Per-lane gathers/scatters to apply
-# the permutation instead are the ~100x-off-bandwidth pattern (CLAUDE
-# rule 1/7), and subpath re-pairing (sorting each side independently —
-# statistically valid since any fixed cam/light pairing bijection is
-# unbiased) still needs the buffers physically permuted for the
-# strategies' static row slices. Reclaimable is bounded anyway: the
-# 2026-08-20 phase decomposition (scripts/bench_bdpt_phases.py: walks
-# 41.1 / s0 +6.4 / t1 +38.3 / s1 +10.8 / gen +24.2 ms) puts the
-# masked-no-op fraction compaction could touch at ~30% of the strategy
-# groups — less than the sort it cannot afford.
+# Length compaction (renderer/compact.py) is not applied to BDPT: its
+# state is the (D, N) vertex buffers (~22 fields x D rows, ~160 (N,)
+# operands at 512^2), and one multi-operand lax.sort over that many
+# operands compiles far too slowly (compact.run_compacted docstring). The
+# PT/VPT escape (slim core + re-intersect restore) does not exist here:
+# the buffers ARE the walk's product, not recomputable from a slim core.
 
-def _tile_splat():
-    """t=1 film splats route through the tile-bucketed Pallas kernel
-    (ops/splat_pallas.py) on TPU; CPU/interpret keeps the scatter (the
-    kernel's interpret mode is for its unit tests, not production).
-    ADAPT_TILE_SPLAT=0/1 forces either path for A/Bs."""
-    import os
-    v = os.environ.get("ADAPT_TILE_SPLAT", "auto")
-    if v == "auto":
-        return jax.default_backend() == "tpu"
-    return v != "0"
+
+def splat_sorted(film, ii, rr):
+    """Add the t=1 light-tracing splats rr (M, 3) into film (P, 3) at
+    pixel ids ii (M,): ONE pixel-sorted scatter-add for every t=1 strategy
+    (exact up to f32 add order). Ids outside [0, P) are dropped, so
+    callers mark dead lanes with any out-of-range id. On the GPU XLA
+    lowers the scatter to atomic adds."""
+    ii, r0, r1, r2 = jax.lax.sort(
+        [ii, rr[:, 0], rr[:, 1], rr[:, 2]], num_keys=1)
+    return jax.lax.scatter_add(
+        film, ii[:, None], jnp.stack([r0, r1, r2], -1),
+        jax.lax.ScatterDimensionNumbers(
+            update_window_dims=(1,), inserted_window_dims=(0,),
+            scatter_dims_to_operand_dims=(0,)),
+        indices_are_sorted=True, unique_indices=False,
+        mode=jax.lax.GatherScatterMode.FILL_OR_DROP)
 
 
 # vertex bool bits (reference path_utils.py / bdpt.py get_bool)
@@ -108,10 +99,10 @@ def _vertex_buffers(N, D, has_tex):
     """Depth-major SoA vertex storage.
 
     Scalars are (D, N), vec3 fields (3, D, N): the minor axis is the
-    128-aligned wavefront dim, depth rides the sublanes (D<=17 pads to
-    24 at most, 1.4x). The pixel-major (N, D) layout measured a 9.8x
-    padding expansion (13 lanes -> 128) in XLA's fusion temps and OOM'd
-    512^2 12-bounce renders on a 16 GB v5e.
+    wavefront dim, so every per-depth row is one contiguous (N,) slab.
+    The pixel-major (N, D) layout padded the small D axis inside XLA's
+    fusion temps (a 9.8x memory expansion, measured on another
+    accelerator, that ran 512^2 12-bounce renders out of memory).
 
     has_tex (static): untextured scenes carry NO tex plane at all
     (None) — matching ops/intersect.py's statically-None it.tex and
@@ -145,9 +136,9 @@ def _slot_onehot(buf, slot, mask=None):
 def _write_vertex(buf, slot, mask, **vals):
     """Masked per-lane write into a vertex slot.
 
-    One-hot masked select over the (D<=17, N) depth axis — per-lane
-    scatters are serialized on TPU (see ops/gather.py). vals keep their
-    wavefront-native (N,)/(N,3) shapes."""
+    One-hot masked select over the (D<=17, N) depth axis instead of a
+    per-lane scatter. vals keep their wavefront-native (N,)/(N,3)
+    shapes."""
     oh = _slot_onehot(buf, slot, mask)
     out = dict(buf)
     for k, v in vals.items():
@@ -169,7 +160,7 @@ def _write_vertex_at(buf, idx, mask, **vals):
     decreasing, so an active lane has placed at every prior iteration
     and its vnum equals the iteration index). The general _write_vertex
     one-hot rewrites every (D, N) plane per iteration (~2*D*N*25 floats
-    of HBM traffic per walk step — the dominant BDPT walk cost); this
+    of device-memory traffic per walk step); this
     touches a single row per field instead."""
     out = dict(buf)
     for k, v in vals.items():
@@ -468,7 +459,7 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
 
         # interaction carried from the previous iteration's next-segment
         # intersect (same restructure as renderer/vpt.py: one closest-hit
-        # per iteration, and the sort key comes free off the hit cluster)
+        # per iteration)
         it = st["it"]
         miss = ~it.is_hit
         if media_everywhere:
@@ -641,10 +632,7 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
         it_n = jax.lax.cond(
             _i < iters - 1,
             lambda: ray_intersect(scene, cfg, hit_point, out_dir,
-                                  alive=active,
-                                  key_hint=cluster_key_hint(scene, cfg, it,
-                                                            out_dir,
-                                                            active)),
+                                  alive=active),
             lambda: jax.tree_util.tree_map(jnp.zeros_like, st["it"]))
 
         return dict(key=key, buf=buf, ray_o=hit_point, ray_d=out_dir,
@@ -663,9 +651,8 @@ def bdpt_random_walk(scene, cfg, key, buffers, ray_o, ray_d, init_pdf, beta,
     # `or media_everywhere` term ran 4 provably-inert all-dead
     # iterations per walk on cbox (40% of the walk at 6 bounces).
     iters = max_bnc + (NULL_BUDGET if cfg.has_null_bsdf else 0)
-    # unroll 2x: a fori iteration costs ~0.5 ms of pure loop overhead at
-    # 512^2 on this platform (scripts/bench_while.py); the two subpath
-    # walks pay it ~13 times per pass
+    # unroll 2x to amortize the per-iteration loop overhead, which the two
+    # subpath walks pay ~13 times per pass
     u = 2 if iters >= 2 else 1
     base = (iters // u) * u
 
@@ -1364,30 +1351,6 @@ def bdpt_pass_core(scene, cfg, key, cnt, pix_ids=None, crop_local=False):
         cnts = cnts.at[target, tid].add(
             jnp.where(in_range, 1, 0), mode="drop")
         return bins, cnts
-
-    def splat_sorted(color_splat, ii, rr):
-        """ONE pixel-sorted scatter-add for all t=1 splats. Six separate
-        in-scan 262k-update scatters were the top BDPT device op
-        (25.3 ms/pass); one concatenated sorted scatter with the
-        indices_are_sorted hint measured 27.1 vs 41.0 ms
-        (scripts/bench_splat.py; exact up to f32 add reorder). On TPU
-        the sorted stream instead feeds the tile-bucketed Pallas
-        accumulator (ops/splat_pallas.py): the scatter itself measured
-        27.25 ms at the bench shape — a serialized read-modify-write
-        per update — while the dense one-hot tile accumulation over
-        VMEM-resident film tiles does the same adds in ~3 ms."""
-        ii, r0, r1, r2 = jax.lax.sort(
-            [ii, rr[:, 0], rr[:, 1], rr[:, 2]], num_keys=1)
-        if _tile_splat():
-            from ..ops.splat_pallas import splat_sorted_accumulate
-            return splat_sorted_accumulate(color_splat, ii, r0, r1, r2)
-        return jax.lax.scatter_add(
-            color_splat, ii[:, None], jnp.stack([r0, r1, r2], -1),
-            jax.lax.ScatterDimensionNumbers(
-                update_window_dims=(1,), inserted_window_dims=(0,),
-                scatter_dims_to_operand_dims=(0,)),
-            indices_are_sorted=True, unique_indices=False,
-            mode=jax.lax.GatherScatterMode.FILL_OR_DROP)
 
     def run_group_flat(case, table, carry):
         color_local, color_splat, bins, cnts = carry

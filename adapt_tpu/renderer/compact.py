@@ -25,7 +25,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..ops.intersect import _sort_by
+from ..ops.intersect import _sort_by, _unsort
 
 
 def parse_schedule(s):
@@ -101,9 +101,8 @@ def run_compacted(iteration, init, iters, schedule, unroll,
     def run_span(st, start, count):
         """count iterations from absolute index `start` at st's width.
 
-        unroll: a fori iteration costs ~0.5 ms of pure loop overhead on
-        this platform at 512^2 (scripts/bench_while.py empty-body); the
-        body is traced `unroll` times per loop (compile-size bound)."""
+        unroll: amortizes the per-iteration loop overhead; the body is
+        traced `unroll` times per loop (compile-size bound)."""
         if count <= 0:
             return st
         u = max(1, min(unroll, count))
@@ -138,7 +137,7 @@ def run_compacted(iteration, init, iters, schedule, unroll,
         # actives first, ascending original-lane-id within each class:
         # the composite key pos + dead*N is DISTINCT per lane, so the
         # (unstable) lax.sort permutation is deterministic. The stage's
-        # ENTRY order is restored by sorting back on a per-stage local
+        # ENTRY order is restored by scattering back to a per-stage local
         # rank `loc` that rides the same sort — NOT on pos: a narrowed
         # prefix is (actives ascending, then dead ascending), which is
         # not ascending-pos as a whole, so a pos-unsort at a NESTED
@@ -149,7 +148,7 @@ def run_compacted(iteration, init, iters, schedule, unroll,
         skey = jnp.where(st["active"], st["pos"], st["pos"] + N)
         loc = jnp.arange(w, dtype=jnp.int32)
         leaves, treedef = jax.tree_util.tree_flatten(core)
-        sorted_all = _sort_by(skey, leaves + [loc], seg=0)
+        sorted_all = _sort_by(skey, leaves + [loc])
         core_s = jax.tree_util.tree_unflatten(treedef, sorted_all[:-1])
         loc_s = sorted_all[-1]
         n_alive = jnp.sum(st["active"].astype(jnp.int32))
@@ -168,8 +167,8 @@ def run_compacted(iteration, init, iters, schedule, unroll,
         col_sorted = jax.lax.cond(n_alive <= W2, narrow_fn, full_fn,
                                   core_s)
         # exact inverse of the aliveness sort: loc_s[i] is where sorted
-        # slot i's lane sat at stage entry
-        (col,) = _sort_by(loc_s, [col_sorted], seg=0)
+        # slot i's lane sat at stage entry (ops/intersect._unsort)
+        (col,) = _unsort(loc_s, [col_sorted])
         return col
 
     if schedule:

@@ -1,6 +1,6 @@
 """Wavefront unidirectional path tracer with NEE + MIS.
 
-TPU-native re-design of the reference's megakernel integrator
+Wavefront re-design of the reference's megakernel integrator
 (renderer/vanilla_renderer.py:32-120): instead of one divergent per-pixel
 loop, the whole W*H ray wavefront advances through the bounce pipeline in
 lockstep inside a lax.fori_loop — intersect -> russian roulette -> NEE ->
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops import bxdf_ops, emitter_ops
-from ..ops.intersect import ray_intersect, does_intersect, cluster_key_hint
+from ..ops.intersect import ray_intersect, does_intersect
 from ..ops.math3d import dot, normalize, norm
 from ..ops.sampling import balance_heuristic
 from ..ops.texture_ops import get_uv_item, process_ns
@@ -27,15 +27,13 @@ from . import compact
 
 
 import os as _os
-# PT length-compaction schedule (VERDICT r4 #2; machinery + invariants
-# in renderer/compact.py): measured cbox 512^2 alive/bounce profile
+# PT length-compaction schedule (machinery + invariants in
+# renderer/compact.py): measured cbox 512^2 alive/bounce profile
 # 0.93 0.68 0.56 0.47 0.34 0.27 0.22 0.18 0.14 0.06 0.02 0.01. Splits
-# must sit safely under each 1/div boundary.
-# MEASURED DEAD END on the 8-bounce flagship (keep "" there): bench.py
-# 420.6 Mrays/s lane-RNG baseline vs 405.7 with "4:2,7:4" — at ~9.6
-# ms/spp the split sorts + prefix re-intersects cost more than the
-# ~28% of loop width they save. The machinery pays where passes are
-# expensive and deep (VPT -41%; big-scene rows measured separately).
+# must sit safely under each 1/div boundary. Off by default for shallow
+# cheap passes (the split sorts + prefix re-intersects can cost more than
+# the loop width they save); whether a split pays on the GPU is not
+# measured yet.
 _COMPACT = compact.parse_schedule(
     _os.environ.get("ADAPT_PT_COMPACT", ""))
 
@@ -62,12 +60,9 @@ def _render_batch_pt(scene, cfg, key, cnt0, spp, fuse, schedule):
     """spp progressive samples accumulated inside one jit call.
 
     fuse: samples traced together as one (fuse*N,3) wavefront per loop
-    iteration. History: the r1 loop was launch-overhead bound and fuse=4
-    won; with the r3 lean bounce carry the overhead is amortized away and
-    fuse=1 measures fastest on cbox 512^2 (424.1 vs 338.4 Mrays/s honest,
-    2026-08-19) — narrower wavefronts mean smaller HBM fusion temps.
-    Re-sweep fuse after any carry change. Returns the SUM of spp
-    estimates, (N, 3)."""
+    iteration: wider wavefronts amortize per-iteration overhead, narrower
+    ones keep XLA's fusion temps small (the best value on the GPU is not
+    measured yet). Returns the SUM of spp estimates, (N, 3)."""
     fuse = max(1, min(fuse, spp))
     iters = spp // fuse
     # with a crop window ONLY crop pixels are traced (reference
@@ -223,13 +218,6 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=None,
             bxdf_ops.surface_sample(cfg, mat, it, ray_d, u_bsdf, world_ior,
                                     scene=scene)
 
-        # (a fused shadow+continuation intersect — ops/intersect.py
-        # intersect_pair — measured a LOSS here: knot290k 12-bounce 512^2
-        # same-day pairs 4.03/4.14 fused vs 3.47 s/spp unfused, despite
-        # replacing 2 sorts + 2 unsorts with 1 sort + 1 unsort; the
-        # experiment lives in ops/intersect.py + scripts/bench_pair.py,
-        # OUT of this fusion-fragile loop body)
-
         # --- next-event estimation (vanilla_renderer.py:67-97) ---
         direct_int = jnp.zeros((n, 3), jnp.float32)
         for _s in range(cfg.num_shadow_ray):
@@ -244,9 +232,7 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=None,
             light_dir = to_emitter / jnp.maximum(emitter_d[..., None], 1e-12)
             occluded = does_intersect(
                 scene, cfg, hit_point, light_dir, emitter_d,
-                alive=active,
-                key_hint=cluster_key_hint(scene, cfg, it, light_dir,
-                                          active))
+                alive=active)
             direct_spec = bxdf_ops.surface_eval(cfg, mat, it, ray_d,
                                                 light_dir, world_ior,
                                                 scene=scene)
@@ -277,18 +263,14 @@ def trace_pt(scene, cfg, key, ray_o, ray_d, schedule=None,
             / jnp.maximum(ray_pdf, 1e-9)[..., None]
 
         # --- next hit + emission MIS weight (vanilla_renderer.py:109-117) ---
-        # dead lanes skip the closest-hit sweep entirely (alive culling);
-        # the sort key comes free off the current hit's cluster id. The
-        # LAST bounce's next-hit feeds nothing (its emission weight is
+        # dead lanes skip the closest-hit sweep entirely (alive culling).
+        # The LAST bounce's next-hit feeds nothing (its emission weight is
         # consumed by the following iteration) — skip the sweep there
         # instead of letting it sit un-DCE'd in the loop carry.
         new_it = jax.lax.cond(
             b < cfg.max_bounce - 1,
             lambda: ray_intersect(scene, cfg, hit_point, new_dir,
-                                  alive=active,
-                                  key_hint=cluster_key_hint(scene, cfg,
-                                                            it, new_dir,
-                                                            active)),
+                                  alive=active),
             lambda: jax.tree_util.tree_map(jnp.zeros_like, st["it"]))
         # normal/bump maps + albedo applied at interaction creation: the
         # emission-MIS pdf below and every next-bounce consumer then see

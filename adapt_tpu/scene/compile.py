@@ -6,9 +6,9 @@ module flattens them into `SceneData`, a registered pytree of jnp arrays laid
 out for the wavefront kernels:
 
  * triangles carry a precomputed plane + dual-basis form (n, d, U, V, cu, cv)
-   so the hot ray/triangle test becomes two (N,3)@(3,T) matmuls on the MXU
-   (see ops/intersect.py) instead of a per-ray solve — the TPU-native
-   equivalent of the reference's matrix-inverse test (tracer_base.py:199-214);
+   so the hot ray/triangle test becomes all-pairs dot products (see
+   ops/intersect.py) instead of a per-ray solve — the batched equivalent of
+   the reference's matrix-inverse test (tracer_base.py:199-214);
  * spheres live in their own SoA (the reference's padded-prim convention,
    xml_parser.py:156-158, is preserved only in global prim indexing);
  * materials / media / emitters become per-object and per-emitter tables
@@ -146,32 +146,11 @@ class SceneData:
     volume: Any
     # --- BVH (skip-offset flat layout; 1-node dummies when not built) ---
     # BVH traversal tables, PACKED so each traversal step is one row-gather
-    # per node and one per leaf slot (45 separate per-lane gathers/step made
-    # the 290k-prim walk ~50x slower than bandwidth on TPU)
+    # per node and one per leaf slot
     bvh_node_pack: jnp.ndarray  # (M,9) f32: lo(3) hi(3) base cnt skip
     bvh_prim_pack: jnp.ndarray  # (P,14) f32, leaf-contiguous order:
                                 #   n|center(3) d|radius(1) U(3) cu(1)
                                 #   V(3) cv(1) is_sphere(1) gid(1)
-    # two-level cluster decomposition for the Pallas big-scene intersector
-    # (ops/cluster_pallas.py): subtree cuts of the SAH tree, each cluster's
-    # prim rows padded to a fixed block so one DMA streams it into VMEM
-    cl_aabb: jnp.ndarray        # (C,8) f32: lo(3) hi(3) pad(2)
-    cl_rows: jnp.ndarray        # (C,24,CM) f32 rows: n|c(3) d|r(1) U(3) cu(1)
-                                #   V(3) cv(1) sph(1) gid(1) ng(3) obj(1)
-    cl_aabb_t: jnp.ndarray      # (8,Cp) f32 transposed: rows 0:3 lo,
-                                #   3:6 hi; Cp = C padded to 128 (pad
-                                #   clusters lo=+big so slabs never hit)
-    cl_chunk: jnp.ndarray       # (C*8,K) f32 per-128-prim-chunk AABBs,
-                                #   fields on sublanes, chunks on lanes:
-                                #   [c*8+f, q]; f 0:3 lo, 3:6 hi
-                                #   (K = CM/128; empty chunks lo>hi)
-    cl_rows_pm: jnp.ndarray     # (C*CM,24) f32: cl_rows prim-MAJOR, so
-                                #   the deferred winner resolve is ONE
-                                #   contiguous row-gather per lane (16
-                                #   scattered scalar gathers off the
-                                #   field-major table measured 37.6 ms
-                                #   per bounce at 512^2 — 17% of the
-                                #   knot290k render)
     # full-length per-prim test data (triangle plane/dual-basis; zeros for
     # sphere prims which use pre0/pre1 instead)
     prim_obj: jnp.ndarray        # (P,) i32 owning object
@@ -213,12 +192,12 @@ class RenderConfig:
     world_scattering: bool = False
     medium_kinds: tuple = ()        # MediumTags present (world + objects)
     has_null_bsdf: bool = False     # any null (medium-boundary) surface
-    n_null_objs: int = 0            # count (sizes the K-hit track slots)
     volume_kind: int = 0            # VolumeTag (0 = no grid volume)
     volume_phase: int = 0           # MediumTag of the volume's phase fn
-    use_bvh: bool = False           # BVH traversal vs brute-force scan
-    use_pallas: bool = False        # Pallas VMEM-resident triangle kernel
-    use_cluster: bool = False       # Pallas two-level cluster intersector
+    # intersector (set by choose_intersector): BVH walk, Pallas triangle
+    # kernel, or (both False) the jnp chunk scan
+    use_bvh: bool = False
+    use_pallas: bool = False
     has_normal_map: bool = False
     has_bump_map: bool = False
     # SSAO (reference renderer/ssao.py:36-38)
@@ -298,78 +277,27 @@ def _texture_table(objects, recs, atlas) -> TextureTable:
                         present=bool((mode > -255).any()))
 
 
-def _cluster_cut(node_pack, rows18, prim_aabb):
-    """Cut the skip-offset SAH tree into disjoint subtree clusters.
+# scenes with at most this many prims stay on the all-pairs tests (jnp
+# chunk scan or the Pallas triangle kernel); above it the BVH walk wins
+SMALL_SCENE_PRIMS = 256
+# the CPU backend walks the BVH from this prim count on
+BVH_THRESHOLD = 64
 
-    Each cluster is a whole subtree with <= CM prims; because the builder
-    stores prims leaf-contiguous in DFS order, every subtree covers a
-    contiguous prim range, so a cluster is just (aabb, row slice). Rows are
-    padded to the fixed CM block size (pad rows carry gid = -1) so the
-    Pallas intersector can stream one cluster with one DMA. Each cluster
-    also gets per-128-prim-chunk AABBs (chunks are contiguous DFS runs, so
-    they are tight sub-subtree boxes) for the kernel's second culling
-    level; prim_aabb is (P,6) lo|hi per prim in the same DFS order.
 
-    Returns (cl_aabb (C,8), cl_aabb_t (8,Cp), cl_rows (C,24,CM),
-    cl_chunk (C*8,K))."""
-    M = node_pack.shape[0]
-    P = rows18.shape[0]
-    base = node_pack[:, 6].astype(np.int64)
-    cnt = node_pack[:, 7].astype(np.int64)
-    skip = node_pack[:, 8].astype(np.int64)
-    # CM=256 measured best end-to-end on the 290k knot with the shortlist
-    # sweep + cluster-id ray sort (full 12-bounce render: CM256 2.87,
-    # CM512 3.83, CM1024 3.69, CM128 3.75 s/spp); pre-shortlist, CM=1024
-    # won (tighter lists changed the optimum). 2048/4096 stay dead: loose
-    # boxes defeat the front-to-back prune (bounce closest 1922 vs 515
-    # ms). The ADAPT_CM env knob re-runs the experiment without a code
-    # edit.
-    import os
-    cm = int(os.environ.get("ADAPT_CM", "256"))
-    if not (cm > 0 and cm % 128 == 0):
-        raise ValueError(
-            f"ADAPT_CM must be a positive multiple of 128, got {cm}")
-
-    # first leaf prim at-or-after each node (leaf bases increase in DFS)
-    big = np.int64(1) << 60
-    tmp = np.where(cnt > 0, base, big)
-    nxt = np.minimum.accumulate(tmp[::-1])[::-1]
-    nxt = np.append(np.where(nxt >= big, P, nxt), P)
-
-    clusters = []
-    i = 0
-    while i < M:
-        s = int(nxt[i])
-        e = int(nxt[min(int(skip[i]), M)])
-        n = e - s
-        if n <= cm or cnt[i] > 0:
-            clusters.append((s, n, node_pack[i, 0:6]))
-            i = int(skip[i])
-        else:
-            i += 1
-    C = len(clusters)
-    K = cm // 128
-    Cp = -(-C // 128) * 128
-    aabb = np.zeros((C, 8), np.float32)
-    aabb_t = np.zeros((8, Cp), np.float32)
-    aabb_t[0:3, :] = np.float32(3e38)          # pad clusters never hit
-    aabb_t[3:6, :] = np.float32(-3e38)
-    # (C, 24, CM): fields on sublanes, prims on lanes (128-aligned DMA
-    # slices; see ops/cluster_pallas.py layout note)
-    rows = np.zeros((C, 24, cm), np.float32)
-    rows[:, 13, :] = -1.0                      # gid row: mark padding
-    chunk = np.zeros((C, 8, K), np.float32)
-    chunk[:, 0:3, :] = np.float32(3e38)        # empty chunks never hit
-    chunk[:, 3:6, :] = np.float32(-3e38)
-    for k, (s, n, box) in enumerate(clusters):
-        aabb[k, :6] = box
-        aabb_t[0:6, k] = box
-        rows[k, :18, :n] = rows18[s:s + n].T
-        for q in range(-(-n // 128)):
-            sl = prim_aabb[s + q * 128:s + min(n, (q + 1) * 128)]
-            chunk[k, 0:3, q] = sl[:, 0:3].min(0)
-            chunk[k, 3:6, q] = sl[:, 3:6].max(0)
-    return aabb, aabb_t, rows, chunk.reshape(C * 8, K)
+def choose_intersector(backend: str, n_tris: int, n_prims: int) -> str:
+    """The intersector a scene uses on a backend: "pallas" (the Triton
+    triangle kernel, ops/intersect_pallas.py; spheres stay on the jnp
+    test), "scan" (the jnp chunk scan) or "bvh" (the stackless walk,
+    ops/bvh.py). A pure function of its arguments so tests reach every
+    branch without the device."""
+    if backend == "cpu":
+        return "bvh" if n_prims >= BVH_THRESHOLD else "scan"
+    if backend == "gpu":
+        if n_prims > SMALL_SCENE_PRIMS:
+            return "bvh"
+        return "pallas" if n_tris > 0 else "scan"
+    raise ValueError(f"no intersector for JAX backend {backend!r} "
+                     "(supported: gpu, cpu)")
 
 
 def _stack3(vals):
@@ -450,11 +378,10 @@ def compile_scene(emitters, array_info, objects, configs, scene_dir="."):
     prim_cu[tri_ids] = (U * p0).sum(-1)
     prim_cv[tri_ids] = (V * p0).sum(-1)
 
-    # --- BVH over all prims (native binned-SAH; skipped for tiny scenes
-    # where the brute-force wavefront scan is faster) ---
-    BVH_THRESHOLD = 64
-    use_bvh = P >= BVH_THRESHOLD
-    if use_bvh:
+    intersector = choose_intersector(jax.default_backend(), len(tri_ids), P)
+    # --- BVH over all prims (native binned-SAH; skipped for tiny scenes,
+    # which no backend walks) ---
+    if P >= BVH_THRESHOLD:
         from ..native import bvh_build
         prim_lo = prims.min(axis=1)
         prim_hi = prims.max(axis=1)
@@ -465,7 +392,7 @@ def compile_scene(emitters, array_info, objects, configs, scene_dir="."):
             prim_hi[sph_ids] = c + r
         node_f, node_i, prim_order = bvh_build(
             np.concatenate([prim_lo, prim_hi], axis=1).astype(np.float32))
-        # int fields ride float32 rows (one packed table, one DMA layout);
+        # int fields ride float32 rows (one packed table, one row gather);
         # exact only below 2^24 — fail loudly instead of rounding skip
         # offsets on >16.7M-prim scenes
         if P >= (1 << 24) or node_i.max() >= (1 << 24):
@@ -483,35 +410,9 @@ def compile_scene(emitters, array_info, objects, configs, scene_dir="."):
             [a, b[:, None], prim_U, prim_cu[:, None], prim_V,
              prim_cv[:, None], prim_is_sphere[:, None].astype(np.float32),
              np.arange(P, dtype=np.float32)[:, None]], axis=1)
-        rows18 = np.concatenate(
-            [prim_pack, n_g.astype(np.float32),
-             prim_obj[:, None].astype(np.float32)], axis=1)
-        prim_ab = np.concatenate([prim_lo, prim_hi],
-                                 axis=1).astype(np.float32)[prim_order]
-        cl_aabb, cl_aabb_t, cl_rows, cl_chunk = _cluster_cut(
-            node_pack, rows18[prim_order], prim_ab)
         bvh = dict(bvh_node_pack=jnp.asarray(node_pack),
-                   bvh_prim_pack=jnp.asarray(prim_pack[prim_order]),
-                   cl_aabb=jnp.asarray(cl_aabb),
-                   cl_aabb_t=jnp.asarray(cl_aabb_t),
-                   cl_rows=jnp.asarray(cl_rows),
-                   cl_chunk=jnp.asarray(cl_chunk),
-                   cl_rows_pm=jnp.asarray(
-                       np.ascontiguousarray(
-                           cl_rows.transpose(0, 2, 1).reshape(-1, 24))))
+                   bvh_prim_pack=jnp.asarray(prim_pack[prim_order]))
     else:
-        # Placeholders follow the same inverted-box convention as
-        # _cluster_cut padding (lo=+3e38 > hi=-3e38 never passes a slab
-        # test) so an accidental cluster dispatch on a sceneless config
-        # cannot produce phantom hits at the origin.
-        inv_box8 = np.zeros((1, 8), np.float32)
-        inv_box8[:, 0:3], inv_box8[:, 3:6] = 3e38, -3e38
-        inv_aabb_t = np.zeros((8, 128), np.float32)
-        inv_aabb_t[0:3, :], inv_aabb_t[3:6, :] = 3e38, -3e38
-        inv_chunk = np.zeros((8, 1), np.float32)
-        inv_chunk[0:3, :], inv_chunk[3:6, :] = 3e38, -3e38
-        empty_rows = np.zeros((1, 24, 128), np.float32)
-        empty_rows[:, 13, :] = -1.0            # gid row: mark padding
         # placeholder node: inverted box with skip=1 — an accidental
         # traverse() on an unbuilt BVH misses and TERMINATES (skip=0 made
         # the cursor walk spin forever on a box miss)
@@ -519,13 +420,7 @@ def compile_scene(emitters, array_info, objects, configs, scene_dir="."):
         inv_node[:, 0:3], inv_node[:, 3:6] = 3e38, -3e38
         inv_node[:, 8] = 1.0
         bvh = dict(bvh_node_pack=jnp.asarray(inv_node),
-                   bvh_prim_pack=jnp.zeros((1, 14), jnp.float32),
-                   cl_aabb=jnp.asarray(inv_box8),
-                   cl_aabb_t=jnp.asarray(inv_aabb_t),
-                   cl_rows=jnp.asarray(empty_rows),
-                   cl_chunk=jnp.asarray(inv_chunk),
-                   cl_rows_pm=jnp.asarray(
-                       empty_rows.transpose(0, 2, 1).reshape(-1, 24)))
+                   bvh_prim_pack=jnp.zeros((1, 14), jnp.float32))
 
     # --- camera ---
     cam_dir = configs["transform"][0]
@@ -618,18 +513,10 @@ def compile_scene(emitters, array_info, objects, configs, scene_dir="."):
             | ({world.medium.type_id} if world.medium.is_scattering
                else set()))),
         has_null_bsdf=any(m.is_bsdf and m.type_id < 0 for m in pad_mats),
-        n_null_objs=sum(1 for m in pad_mats
-                        if m.is_bsdf and m.type_id < 0),
         volume_kind=int(vol_rec.type_id),
         volume_phase=int(vol_rec.phase_type_id),
-        use_bvh=use_bvh,
-        # Pallas triangle kernel: small scenes on a real TPU (Mosaic);
-        # CPU tests opt in via interpret mode.
-        use_pallas=(len(tri_ids) > 0 and len(tri_ids) <= 256 and P <= 256
-                    and jax.default_backend() != "cpu"),
-        # Pallas cluster intersector: big scenes on TPU (the jnp cursor
-        # walk's per-lane gathers measure ~100x off HBM bandwidth there)
-        use_cluster=(P > 256 and jax.default_backend() != "cpu"),
+        use_bvh=intersector == "bvh",
+        use_pallas=intersector == "pallas",
         has_normal_map=any(obj.texture_group.get("normal") is not None
                            for obj in objects),
         has_bump_map=any(obj.texture_group.get("bump") is not None

@@ -44,7 +44,12 @@ class TextureRec:
                 self.c2 = rgb_parse(rgb_nodes[1])
         else:
             self.mode = MODE_IMAGE
-            from PIL import Image
+            try:
+                from PIL import Image
+            except ImportError:
+                raise ImportError(
+                    f"texture '{self.id}' is an image texture; reading "
+                    "image files needs PIL (pillow)") from None
             file_path = elem.find("string").get("value")
             if not os.path.exists(file_path):
                 # missing asset: degrade to an untextured material instead of

@@ -5,6 +5,8 @@ Quantile normalization, watermark stamping, tonemap + write.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 
 import numpy as np
 
@@ -53,9 +55,36 @@ def write_image(path: str, img: np.ndarray, gamma: float = 2.2) -> None:
     try:
         import cv2
         cv2.imwrite(path, u8[..., ::-1])
+        return
     except ImportError:
+        pass
+    try:
         from PIL import Image
         Image.fromarray(u8).save(path)
+    except ImportError:
+        if not path.endswith(".png"):
+            raise ImportError(f"writing {os.path.basename(path)} needs "
+                              "cv2 or PIL; only .png and .npy are written "
+                              "without them") from None
+        with open(path, "wb") as f:
+            f.write(png_bytes(u8))
+
+
+def png_bytes(u8: np.ndarray) -> bytes:
+    """Encode an (h, w, 3) uint8 RGB image as PNG with the stdlib alone
+    (zlib + struct): 8-bit truecolor, no filtering."""
+    h, w, _ = u8.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)   # filter byte 0 per row
+    raw[:, 1:] = np.ascontiguousarray(u8, np.uint8).reshape(h, 3 * w)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def remove_fireflies(img: np.ndarray, thresh: float = 1.5) -> np.ndarray:

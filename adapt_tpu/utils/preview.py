@@ -1,9 +1,9 @@
 """Live incremental preview over HTTP (reference render.py:129-152).
 
-The reference shows progress in a taichi GUI window; a TPU host has no
-display server, so the headless equivalent is a tiny in-process HTTP
+The reference shows progress in a taichi GUI window; an accelerator host
+usually has no display server, so the headless equivalent is a tiny in-process HTTP
 viewer: an auto-refreshing page serving the latest progressive frame.
-stdlib-only (http.server + a daemon thread); PNG encoding via PIL.
+stdlib-only (http.server + a daemon thread + utils/imaging.png_bytes).
 
 Usage:
     srv = PreviewServer(port=8000)      # port=0 picks a free port
@@ -13,7 +13,6 @@ Usage:
 """
 from __future__ import annotations
 
-import io
 import json
 import threading
 import time
@@ -125,13 +124,12 @@ class PreviewServer:
             return
         self._last = now
         import numpy as np
-        from PIL import Image
+        from .imaging import png_bytes
         a = np.asarray(img)
         a = np.clip(a, 0.0, 1.0)
-        buf = io.BytesIO()
-        Image.fromarray((a * 255).astype(np.uint8)).save(buf, format="PNG")
+        data = png_bytes((a * 255).astype(np.uint8))
         with self._lock:
-            self._png = buf.getvalue()
+            self._png = data
             self._meta.update(spp=int(spp), h=int(a.shape[0]),
                               w=int(a.shape[1]))
             self._meta["version"] += 1

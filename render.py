@@ -11,12 +11,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# Platform must be pinned before the first (transitive) jax import.
-if "--arch" in sys.argv:
-    _arch = sys.argv[sys.argv.index("--arch") + 1:][:1]
-    if _arch == ["cpu"]:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-
 import numpy as np
 
 from adapt_tpu.parsers.opts import get_options
@@ -90,16 +84,15 @@ def export_transient_profile(rdr, opts, configs):
                        viz=True)
 
 
-def main():
-    opts = get_options()
+def main(argv=None):
+    opts = get_options(argv)
     t_start = time.time()
 
     import jax
-    if opts.arch == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    from adapt_tpu.utils.runtime import pin_platform, setup_compile_cache
+    pin_platform(opts.arch)
     if not opts.no_cache:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser("~/.cache/adapt_tpu_jax"))
+        setup_compile_cache()
     if opts.debug:
         jax.config.update("jax_debug_nans", True)
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env bash
 # Canonical render commands (reference assets/auto_scripts/run.sh,
-# CUDA flags -> TPU defaults; foam uses the procedural stand-in slab).
+# with this renderer's default flags; foam uses the procedural stand-in
+# slab).
 set -e
 cd "$(dirname "$0")/../.."
 python ./render.py --scene cbox --name cbox.xml --iter_num 8000 --type bdpt

@@ -18,8 +18,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/adapt_tpu_jax"))
+from adapt_tpu.utils.runtime import setup_compile_cache
+setup_compile_cache()
 
 
 def timeit(fn, *args, reps=5, warmup=2):

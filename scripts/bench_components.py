@@ -1,7 +1,14 @@
 #!/usr/bin/env python
-"""Time the pieces of a cluster-tier intersect call in isolation:
-key slab pass, wavefront sort, shortlist build, kernel. Identifies
-whether the outside-kernel dense passes are worth optimizing."""
+"""Time one closest-hit and one any-hit intersect call of 512^2 random
+rays on each intersector a scene can take: the jnp chunk scan, the Pallas
+triangle kernel (<= 256 prims) and the BVH walk (scenes with a BVH).
+
+    python scripts/bench_components.py            # SCENE=cbox.xml
+    SCENE=knot290k.xml python scripts/bench_components.py
+
+Needs a CUDA card; prints one line per (intersector, query) in ms.
+"""
+import dataclasses
 import os
 import sys
 import time
@@ -11,13 +18,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def timed(fn, reps=5):
-    import numpy as np
     import jax
+    jax.block_until_ready(fn())
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = fn()
-        float(np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[0])
+        jax.block_until_ready(fn())
         times.append(time.perf_counter() - t0)
     times.sort()
     return times[len(times) // 2]
@@ -25,51 +31,42 @@ def timed(fn, reps=5):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import pin_platform, setup_compile_cache
+    pin_platform("gpu")
+    setup_compile_cache()
     import jax.numpy as jnp
-    import numpy as np
-    from adapt_tpu.scene.compile import load_scene
-    from adapt_tpu.ops.intersect import _sort_by, FAR
-    from adapt_tpu.ops import cluster_pallas as cp
+    from adapt_tpu.scene.compile import load_scene, SMALL_SCENE_PRIMS
+    from adapt_tpu.ops.intersect import ray_intersect, does_intersect
 
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     scene, cfg, _ = load_scene(os.path.join(here, "scenes", "cbox"),
-                               os.environ.get("SCENE", "knot290k.xml"))
-    C = scene.cl_aabb.shape[0]
-    print(f"C={C} CM={scene.cl_rows.shape[2]} LANE_B={cp.LANE_B}",
-          flush=True)
-    key = jax.random.PRNGKey(0)
+                               os.environ.get("SCENE", "cbox.xml"))
     N = 512 * 512
-    k1, k2 = jax.random.split(key)
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
     lo = jnp.min(scene.obj_aabb_min, axis=0)
     hi = jnp.max(scene.obj_aabb_max, axis=0)
     o = jax.random.uniform(k1, (N, 3)) * (hi - lo) + lo
     d = jax.random.normal(k2, (N, 3))
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    far = jnp.full((N,), FAR, jnp.float32)
+    max_t = jnp.full((N,), 1.0, jnp.float32)
 
-    ckey = jax.jit(lambda o, d, f: cp.primary_cluster_key(scene, o, d, f))
-    sortf = jax.jit(lambda k, o, d, f: _sort_by(
-        k, [o, d, f, jnp.arange(N, dtype=jnp.int32)]))
-
-    def shortlists(o, d, f):
-        ro, rd, fr, Np = cp._ray_blocks(o, d, f)
-        return cp._tile_shortlists(scene.cl_aabb, ro, rd, fr)[:2]
-    slf = jax.jit(shortlists)
-    kern = jax.jit(lambda o, d, f: cp.cluster_closest_hit(scene, o, d, f)[0])
-
-    kv = ckey(o, d, far)
-    os_, ds_, fs_, pos = sortf(kv, o, d, far)
-    np.asarray(slf(os_, ds_, fs_)[0]); np.asarray(kern(os_, ds_, fs_))
-    print(f"key slab : {timed(lambda: ckey(o, d, far))*1e3:7.1f} ms",
+    P = int(scene.prim_ng.shape[0])
+    tiers = {}
+    if P <= SMALL_SCENE_PRIMS:
+        tiers["scan"] = dict(use_bvh=False, use_pallas=False)
+        if scene.tri_n.shape[0] > 0:
+            tiers["pallas"] = dict(use_bvh=False, use_pallas=True)
+    if scene.bvh_node_pack.shape[0] > 1:
+        tiers["bvh"] = dict(use_bvh=True, use_pallas=False)
+    print(f"{P} prims, {N} rays, device {jax.devices()[0].device_kind}",
           flush=True)
-    print(f"sort     : {timed(lambda: sortf(kv, o, d, far))*1e3:7.1f} ms",
-          flush=True)
-    print(f"shortlist: {timed(lambda: slf(os_, ds_, fs_))*1e3:7.1f} ms",
-          flush=True)
-    print(f"kernel+  : {timed(lambda: kern(os_, ds_, fs_))*1e3:7.1f} ms "
-          f"(includes its internal shortlist build)", flush=True)
+    for name, over in tiers.items():
+        c = dataclasses.replace(cfg, **over)
+        closest = jax.jit(lambda o, d: ray_intersect(scene, c, o, d).t)
+        anyhit = jax.jit(lambda o, d: does_intersect(scene, c, o, d, max_t))
+        print(f"{name:6s} closest {timed(lambda: closest(o, d)) * 1e3:8.3f}"
+              f" ms  any {timed(lambda: anyhit(o, d)) * 1e3:8.3f} ms",
+              flush=True)
 
 
 if __name__ == "__main__":

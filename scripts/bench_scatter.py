@@ -38,8 +38,8 @@ def timeit(fn, *args, reps=5):
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     N = 512 * 512
     S = 6
     P = N + 1                       # film + drop row

@@ -30,8 +30,8 @@ def timed(fn, reps=5):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

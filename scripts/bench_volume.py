@@ -17,8 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/adapt_tpu_jax"))
+from adapt_tpu.utils.runtime import setup_compile_cache
+setup_compile_cache()
 
 
 def fetch(x):

@@ -10,6 +10,12 @@ traversal path can be exercised and benchmarked at reference scale:
     scenes/meshes/procedural/knot290k.obj   (~290k tris)
 
 Meshes are deterministic; files are regenerated only if absent.
+
+    python scripts/gen_procedural.py                  # every asset
+    python scripts/gen_procedural.py knot2k tornado   # named ones (ENSURE)
+
+The named assets need numpy alone; the full set also writes image
+textures, which needs PIL.
 """
 import os
 import sys
@@ -106,9 +112,9 @@ def ensure_texture(relpath, size=256):
 
 
 def ensure_all():
-    ensure("knot2k.obj", 100, 10)       # 2,000 tris (cluster-path tests)
+    ENSURE["knot2k"]()                  # 2,000 tris (BVH-walk tests)
     ensure("knot90k.obj", 900, 50)      # 90,000 tris
-    ensure("knot290k.obj", 1450, 100)   # 290,000 tris
+    ENSURE["knot290k"]()                # 290,000 tris
     # stand-ins for reference scene assets the reference repo does not
     # ship (external downloads): geometry differs (torus knots), but the
     # scenes become runnable end-to-end
@@ -126,8 +132,7 @@ def ensure_all():
     ensure_texture("textures/mat.jpeg")
     ensure_texture("kitchen_textures/wood.jpg")
     ensure_texture("../complex/bathroom/textures/wood.jpg")
-    ensure_vol("embergen_dust_devil_tornado_a_50-256-256-256.vol",
-               kind="tornado")
+    ENSURE["tornado"]()
     ensure_vol("janga-smoke-264-136-136.vol", kind="plume")
     ensure_orbs()
     ensure_foam()
@@ -434,5 +439,19 @@ def ensure_vol(name, kind="plume", n=96):
     return path
 
 
+# assets the tests and chip_smoke.py need, by name
+TORNADO_VOL = "embergen_dust_devil_tornado_a_50-256-256-256.vol"
+ENSURE = {
+    "knot2k": lambda: ensure("knot2k.obj", 100, 10),
+    "knot290k": lambda: ensure("knot290k.obj", 1450, 100),
+    "tornado": lambda: ensure_vol(TORNADO_VOL, kind="tornado"),
+}
+
+
 if __name__ == "__main__":
-    ensure_all()
+    names = sys.argv[1:]
+    if names:
+        for n in names:
+            ENSURE[n]()
+    else:
+        ensure_all()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Profile one BDPT pass on the real TPU and print top device ops.
+"""Profile one BDPT pass on the GPU and print top device ops.
 
-Usage (TPU): PROTOCOL_BUFFERS_PYTHON_IMPLEMENTATION=python \
+Usage: PROTOCOL_BUFFERS_PYTHON_IMPLEMENTATION=python \
     python scripts/profile_bdpt.py
 
 Env: SCENE (default cbox.xml), BOUNCES (default 6), PASSES (default 4).
@@ -22,8 +22,8 @@ from profile_pt import dump_op_stats, TRACE_DIR  # noqa: E402
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     from adapt_tpu.scene.compile import load_scene
     from adapt_tpu.renderer.bdpt import render_pass_bdpt

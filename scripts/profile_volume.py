@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile ONE ratio-tracking (and delta-tracking) call on the real TPU.
+"""Profile ONE ratio-tracking (and delta-tracking) call on the GPU.
 
 The r4 ablation (ABLATE=1 scripts/bench_volume.py) shows ratio tracking
 is march-bound (167 ms base vs 157 ms with density gathers stubbed), but
@@ -22,8 +22,8 @@ from profile_pt import dump_op_stats, TRACE_DIR  # noqa: E402
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     from adapt_tpu.scene.compile import load_scene
     from adapt_tpu.renderer.base import camera_rays

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile one VPT bench dispatch on the real TPU and print top device ops.
+"""Profile one VPT bench dispatch on the GPU and print top device ops.
 
 Attribution for VERDICT r4 task #6: where do 83 ms/spp go on the
 homogeneous-medium cbox at 16 bounces? Usage:
@@ -21,8 +21,8 @@ from profile_pt import dump_op_stats, TRACE_DIR  # noqa: E402
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/adapt_tpu_jax"))
+    from adapt_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     import jax.numpy as jnp
     from adapt_tpu.scene.compile import load_scene
     from adapt_tpu.renderer.vpt import render_batch_vpt

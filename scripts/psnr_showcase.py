@@ -11,7 +11,7 @@ out). The reference wrote it via utils/watermark.py:22 apply_watermark
 i.e. uint8 = clip(linear, 0, 1) * 255, (W, H) y-up field transposed to
 row-major y-down -- the exact mapping of Renderer.image().
 
-Usage: python scripts/psnr_showcase.py outputs/showcase_tpu.npy
+Usage: python scripts/psnr_showcase.py outputs/showcase.npy
 
 The watermark band (bottom-right "RENDERED WITH AdaPT" stamp, additive
 +1.0 over ~92x7 px) is excluded from the comparison.
@@ -40,7 +40,7 @@ def psnr_vs_reference(img, ref_png="/root/reference/assets/"
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else "outputs/showcase_tpu.npy"
+    path = sys.argv[1] if len(sys.argv) > 1 else "outputs/showcase.npy"
     img = np.load(path)
     p = psnr_vs_reference(img)
     print(f"PSNR vs reference showcase render: {p:.2f} dB "

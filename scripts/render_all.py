@@ -28,7 +28,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
+from adapt_tpu.utils.runtime import setup_compile_cache
+setup_compile_cache()
 
 from adapt_tpu.scene.compile import load_scene
 from adapt_tpu.renderer.pt import render_pass_pt

@@ -40,7 +40,7 @@ def _run(args, tmp, timeout=240):
          "--input_path", os.path.join(REPO, "scenes"),
          "--output_path", os.path.join(tmp, "out"),
          "--width", "48", "--height", "48", "--max_bounce", "3",
-         "--no_watermark"] + args,
+         "--no_watermark", "--arch", "cpu"] + args,
         cwd=tmp, env=env, capture_output=True, text=True, timeout=timeout)
 
 
@@ -123,7 +123,7 @@ def test_scene_viz_flythrough(tmpdir_mod):
         [sys.executable, os.path.join(REPO, "scene_viz.py"),
          "--input_path", os.path.join(REPO, "scenes"),
          "--scene", "cbox", "--name", "cbox.xml", "--res", "64",
-         "--serve", "0"],
+         "--serve", "0", "--arch", "cpu"],
         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
@@ -161,7 +161,7 @@ def test_cli_serve_preview(tmpdir_mod):
          "--scene", "cbox", "--name", "cbox.xml", "--type", "pt",
          "--width", "48", "--height", "48", "--max_bounce", "3",
          "--iter_num", "60", "--output_freq", "5",
-         "--serve", "0", "--no_watermark"],
+         "--serve", "0", "--no_watermark", "--arch", "cpu"],
         cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:

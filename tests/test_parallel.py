@@ -164,8 +164,7 @@ def test_bvh_tier_dead_lane_forced_miss():
                           + "/meshes/procedural/knot2k.obj"):
         pytest.skip("procedural stand-ins not generated")
     scene, cfg, _ = load_scene(SCENE_DIR + "/cbox/", "knot2k-test.xml")
-    cfg_bvh = dc.replace(cfg, use_bvh=True, use_pallas=False,
-                         use_cluster=False)
+    cfg_bvh = dc.replace(cfg, use_bvh=True, use_pallas=False)
     key = jax.random.PRNGKey(0)
     n = 64
     ro = jnp.broadcast_to(scene.cam_t, (n, 3))
